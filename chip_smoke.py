@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""On-card smoke run of libhuffman_tpu_torch's encode path.
+"""On-card smoke run of libhuffman_tpu_torch's encode and decode paths.
 
 Run from the root of a checkout on a machine with one NVIDIA Hopper card and
 the CUDA toolkit:
@@ -10,19 +10,33 @@ It builds the CUDA kernels from ``libhuffman_tpu_torch/csrc`` and then:
 
   1. prints the card's name and power limit (nvidia-smi) and the build
      times of the kernels and of the native host runtime;
-  2. kernel phase: holds each kernel (K1 histogram, K2 layout, K3 pack)
-     against its plain-torch twin on the card at the encode path's shapes
-     (B = 128 blocks of N = 65536 bytes, W = 24576 payload words, a ragged
-     last row) for the first 8 MiB of the ``text`` and ``mixed`` corpora
-     (bench/corpora.py), exactly, and times both (CUDA events, median);
-  3. slice: ``encode(data, 65536)`` on 64 MiB of each corpus; the wire bytes
-     of the first 128 blocks must equal the host-exact codec's, the whole
-     stream must decode back (host route), every kernel must have been
-     launched by that run and no block re-encoded on the host; prints
-     end-to-end and device-resident GB/s and a per-stage device breakdown
-     with build_trees' share;
-  4. prints one JSON line describing the kernels, then the result line
-     ``{"ok": true, "device": {...}}`` last.
+  2. encode kernel phase: holds each encode kernel (K1 histogram, K2
+     layout, K3 pack) against its plain-torch twin on the card at the
+     encode path's shapes (B = 128 blocks of N = 65536 bytes, W = 24576
+     payload words, a ragged last row) for the first 8 MiB of the ``text``
+     and ``mixed`` corpora (bench/corpora.py), exactly, and times both
+     (CUDA events, median);
+  3. decode kernel phase: the same for each decode kernel (K5 resolve, K6
+     chain, K4 emit) on the device plans of the encoded 8 MiB prefix of
+     each corpus (``decode.build_device_plans``: 128 blocks), summed over
+     the plans;
+  4. slice: ``encode(data, 65536)`` on 64 MiB of each corpus (the wire
+     bytes of the first 128 blocks must equal the host-exact codec's, every
+     encode kernel must have been launched, no block re-encoded on the
+     host), then ``decode(stream)`` with the default device route (it must
+     return the input and equal the host route's output, every decode
+     kernel must have been launched, at most 1% of blocks walked on the
+     host); the launch counts are set to 0 just before each of the two
+     runs and read just after; then holds K5, K6 and K4 against their
+     twins, exactly, on every device plan of that decode run (up to 512
+     blocks each); prints end-to-end and device-resident GB/s and
+     per-stage device breakdowns of both directions;
+  5. error phase: a truncated stream, a flipped tree bit and trailing
+     garbage raise the same error class on the device route as on the
+     host route;
+  6. prints one JSON line describing the six kernels (times, launches,
+     the bound from the bytes each must move at 3.35 TB/s), then the
+     result line ``{"ok": true, "device": {...}}`` last.
 
 Any failed check exits non-zero before the result line; so does a machine
 without CUDA, and a directory holding this script without the package.
@@ -45,6 +59,8 @@ KERNEL_BYTES = B * N     # 8 MiB: the kernel phase's batch
 SLICE_BYTES = 64 << 20   # per corpus, end to end
 RAGGED = 40000           # valid bytes in the kernel batch's last row
 CORPORA = ("text", "mixed")
+HBM_BYTES_PER_MS = 3.35e9  # H100 SXM device memory: 3.35 TB/s
+HOST_SHARE_MAX = 0.01      # most blocks the decode slice may walk on the host
 
 
 class CheckFailed(Exception):
@@ -109,6 +125,102 @@ def stage_ms(torch, dev, kernels, blocks, nv, W: int, reps: int = 5):
             statistics.median(r[1] / sum(r) for r in rows))
 
 
+def decode_stage_ms(torch, kernels, tops, p, reps: int = 3):
+    """Device time of each stage of ``ops.decode.decode_blocks`` on one
+    resident plan, with events between the stages of one pass: (median ms
+    per stage, median pass total), after one warm-up pass."""
+    names = ("resolve", "chain", "emit", "bookkeeping")
+    rows = []
+    for _ in range(reps + 1):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        ev[0].record()
+        meta = kernels.resolve(p["words"], p["tables"], p["ns"])
+        ev[1].record()
+        start, gw, gc4, gr32 = kernels.chain(meta)
+        ev[2].record()
+        kernels.emit(gw, tops.live_mask(gc4, p["caps"]), p["OUTW"])
+        ev[3].record()
+        tops.bookkeeping(meta, start, gc4, gr32, p["n_sym"], p["NP"])
+        ev[4].record()
+        ev[4].synchronize()
+        rows.append([ev[i].elapsed_time(ev[i + 1]) for i in range(4)])
+        del meta, start, gw, gc4, gr32
+    rows = rows[1:]
+    med = {n: statistics.median(r[i] for r in rows)
+           for i, n in enumerate(names)}
+    return med, statistics.median(sum(r) for r in rows)
+
+
+def device_plans(torch, dec, stream: bytes):
+    """The device plans of an encoded stream with their inputs on the card,
+    and the output bytes they cover."""
+    plans, n_out = dec.build_device_plans(stream)
+    on_card = []
+    for p in plans:
+        words, tables, n_sym, caps = dec.plan_tensors(p, torch.device("cuda"))
+        on_card.append({
+            "words": words, "tables": tables, "n_sym": n_sym, "caps": caps,
+            "NP": p.NP, "OUTW": p.OUTW, "ns": p.ns, "blocks": len(p.batch),
+            "out_bytes": int(sum(c.n_sym for c, *_r in p.batch))})
+    return on_card, n_out
+
+
+def against_twins(torch, kernels, tops, p):
+    """K5, K6 and K4 on plan ``p`` and their twins on the same inputs:
+    (max |err| per kernel, meta, chain planes, live-masked gc4, out)."""
+    meta = kernels.resolve(p["words"], p["tables"], p["ns"])
+    meta_p = kernels.resolve_plain(p["words"], p["tables"], p["ns"])
+    planes = kernels.chain(meta)
+    planes_p = kernels.chain_plain(meta)
+    gc4 = tops.live_mask(planes[2], p["caps"])
+    out = kernels.emit(planes[1], gc4, p["OUTW"])
+    out_p = kernels.emit_plain(planes[1], gc4, p["OUTW"])
+    torch.cuda.synchronize()
+    errs = {"resolve": max_abs_err(meta, meta_p),
+            "chain": max(max_abs_err(a, b) for a, b in zip(planes, planes_p)),
+            "emit": max_abs_err(out, out_p)}
+    return errs, meta, planes, gc4, out
+
+
+DECODE_SPANS = ("huff.decode.scan", "huff.decode.tables", "huff.decode.plans",
+                "huff.decode.device", "huff.decode.walk")
+
+
+def profile_decode(torch, dec, stream: bytes):
+    """One ``decode(stream)`` under torch.profiler: (wall ms, ms per span of
+    DECODE_SPANS, device ms summed over the kernels and copies it ran).
+    Profiler overhead is in every number."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        dec.decode(stream)
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    rows = prof.key_averages()
+    # A span that launched kernels has a second row on the device side (a
+    # user annotation covering them): read spans from the host rows and
+    # device time from the device rows that are not annotations.
+    spans = {r.key: r.cpu_time_total / 1e3 for r in rows
+             if r.key in DECODE_SPANS and r.device_type == DeviceType.CPU}
+    device = sum(r.self_device_time_total for r in rows
+                 if r.device_type == DeviceType.CUDA
+                 and not r.is_user_annotation) / 1e3
+    return wall, spans, device
+
+
+def outcome(fn):
+    """The name of the error class ``fn()`` raises, or "no error"."""
+    try:
+        fn()
+    except Exception as e:  # the class is what the error phase compares
+        return type(e).__name__
+    return "no error"
+
+
 def kernel_batch(torch, data: bytes, last_row: int = RAGGED):
     """The first B x N bytes as a device batch whose last row holds
     ``last_row`` valid bytes, zero-padded as encode.encode pads."""
@@ -136,6 +248,7 @@ def main() -> int:
     from libhuffman_tpu_torch import encode as enc
     from libhuffman_tpu_torch import native
     from libhuffman_tpu_torch.ops import _build, hostref, kernels
+    from libhuffman_tpu_torch.ops import decode as tops
     from libhuffman_tpu_torch.ops import device as dev
 
     corpora = load_corpora()
@@ -143,7 +256,7 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     card = smi.splitlines()[0]
-    name = torch.cuda.get_device_name(0)
+    kind = torch.cuda.get_device_name(0)
     print(smi, flush=True)
 
     t0 = time.perf_counter()
@@ -160,11 +273,12 @@ def main() -> int:
     print(f"corpora: {time.perf_counter() - t0:.1f} s to generate "
           f"{len(CORPORA)} x {SLICE_BYTES >> 20} MiB", flush=True)
 
-    # ---- kernel phase: each kernel against its twin, exact -------------
+    # ---- encode kernel phase: each kernel against its twin, exact ------
     W = enc._pack_params(N)
-    errs = {"histogram": 0, "symbol_layout": 0, "pack": 0}
+    errs = {k: 0 for k in kernels.LAUNCHES}
     ms = {k: [] for k in errs}
     plain_ms = {k: [] for k in errs}
+    bound_bytes = {k: [] for k in errs}
     for c in CORPORA:
         blocks, nv = kernel_batch(torch, streams[c])
         freqs = kernels.histogram(blocks, nv)
@@ -196,6 +310,12 @@ def main() -> int:
             "pack": (lambda: kernels.pack(C, L, W),
                      lambda: kernels.pack_plain(C, L, W)),
         }
+        # Bytes each kernel must move: every input read once, every output
+        # written once.
+        bound_bytes["histogram"].append(B * N + 4 * B + 4 * B * 512)
+        bound_bytes["symbol_layout"].append(
+            B * N + 2 * 4 * B * 256 + 4 * B + 2 * 4 * B * N)
+        bound_bytes["pack"].append(2 * 4 * B * N + 4 * B * W + B)
         for k, (kfn, pfn) in runs.items():
             ms[k].append(cuda_ms(torch, kfn, reps=15))
             plain_ms[k].append(cuda_ms(torch, pfn, reps=5))
@@ -203,13 +323,70 @@ def main() -> int:
                   f"{plain_ms[k][-1]:.4f} ms (B={B}, N={N}, W={W}; {card})",
                   flush=True)
         del blocks, nv, freqs, freqs_p, C, L, Cp, Lp, payload, payload_p
-    for k, e in errs.items():
-        check(e == 0, f"kernel {k} disagrees with its twin (max |err| {e})")
+    for k in ("histogram", "symbol_layout", "pack"):
+        check(errs[k] == 0,
+              f"kernel {k} disagrees with its twin (max |err| {errs[k]})")
     print("kernel phase: K1-K3 equal their twins exactly on both corpora",
           flush=True)
 
-    # ---- slice: the encode path end to end -----------------------------
+    # ---- decode kernel phase: K5, K6, K4 against their twins, exact ----
+    for c in CORPORA:
+        prefix = enc.encode(streams[c][:KERNEL_BYTES], N)
+        plans, n_out = device_plans(torch, dec, prefix)
+        check(n_out >= KERNEL_BYTES, f"{c}: the plans of the {B}-block "
+              f"prefix cover {n_out} bytes, not {KERNEL_BYTES}")
+        t = {k: [0.0, 0.0, 0] for k in ("resolve", "chain", "emit")}
+        for p in plans:
+            words, tables, ns = p["words"], p["tables"], p["ns"]
+            e, meta, planes, gc4, out = against_twins(torch, kernels, tops, p)
+            for k, v in e.items():
+                errs[k] = max(errs[k], v)
+            Bp, NP = meta.shape
+            starts = int(planes[3][:, -1].long().sum())
+            live = int((((gc4.long()[:, :, None]
+                          >> torch.arange(0, 32, 8, device="cuda")) & 255)
+                        > 0).sum())
+            moved = {
+                "resolve": words.numel() * 4 + tables.numel() * 4 + Bp * NP * 2,
+                # The walk reads the entry of each start only.
+                "chain": 2 * starts + 3 * 4 * Bp * (NP // 32)
+                + 4 * Bp * (NP // 8),
+                # Counts of every group, the words of the live ones.
+                "emit": 4 * gc4.numel() + 4 * live + out.numel()}
+            gw = planes[1]
+            runs = {
+                "resolve": (lambda: kernels.resolve(words, tables, ns),
+                            lambda: kernels.resolve_plain(words, tables, ns)),
+                "chain": (lambda: kernels.chain(meta),
+                          lambda: kernels.chain_plain(meta)),
+                "emit": (lambda: kernels.emit(gw, gc4, p["OUTW"]),
+                         lambda: kernels.emit_plain(gw, gc4, p["OUTW"])),
+            }
+            for k, (kfn, pfn) in runs.items():
+                t[k][0] += cuda_ms(torch, kfn, reps=5)
+                t[k][1] += cuda_ms(torch, pfn, reps=3, warmup=1)
+                t[k][2] += moved[k]
+            del meta, planes, out, gw
+        shapes = ", ".join(f"B={p['blocks']}/{p['words'].shape[0]} "
+                           f"NP={p['NP']} NS={p['ns']}" for p in plans)
+        for k, (kms, pms, nbytes) in t.items():
+            ms[k].append(kms)
+            plain_ms[k].append(pms)
+            bound_bytes[k].append(nbytes)
+            print(f"kernel {k} [{c}]: {kms:.4f} ms, twin {pms:.4f} ms, "
+                  f"bound {nbytes / HBM_BYTES_PER_MS:.4f} ms over "
+                  f"{len(plans)} plan(s) ({shapes}; {card})", flush=True)
+        del plans
+    for k in ("resolve", "chain", "emit"):
+        check(errs[k] == 0,
+              f"kernel {k} disagrees with its twin (max |err| {errs[k]})")
+    print("kernel phase: K4-K6 equal their twins exactly on both corpora",
+          flush=True)
+
+    # ---- slice: the encode and decode paths end to end -----------------
     launches = {k: 0 for k in kernels.LAUNCHES}
+    encode_kernels = ("histogram", "symbol_layout", "pack")
+    decode_kernels = ("resolve", "chain", "emit")
     for c in CORPORA:
         data = streams[c]
         torch.cuda.synchronize()
@@ -219,8 +396,8 @@ def main() -> int:
         stream = enc.encode(data, N)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        used = dict(kernels.LAUNCHES)
-        for k in launches:
+        used = {k: kernels.LAUNCHES[k] for k in encode_kernels}
+        for k in encode_kernels:
             launches[k] += used[k]
         check(all(v > 0 for v in used.values()),
               f"{c}: a kernel was not launched by the encode run: {used}")
@@ -229,43 +406,138 @@ def main() -> int:
         ref = hostref.encode(data[:KERNEL_BYTES], N)
         check(stream[: len(ref)] == ref,
               f"{c}: wire bytes of the first {B} blocks differ from hostref")
-        t1 = time.perf_counter()
-        back = dec.decode(stream, use_device=False)
-        t_dec = time.perf_counter() - t1
-        check(back == data, f"{c}: round trip through decode failed")
-        print(f"slice [{c}]: {len(data)} B -> {len(stream)} B (ratio "
+        print(f"slice encode [{c}]: {len(data)} B -> {len(stream)} B (ratio "
               f"{len(stream) / len(data):.4f}); encode end to end "
-              f"{len(data) / wall / 1e9:.4f} GB/s ({wall:.3f} s); host "
-              f"decode {t_dec:.3f} s; launches {used}; host re-encoded 0; "
-              f"first {B} blocks wire-equal to hostref; round trip ok "
-              f"({card})", flush=True)
+              f"{len(data) / wall / 1e9:.4f} GB/s ({wall:.3f} s); launches "
+              f"{used}; host re-encoded 0; first {B} blocks wire-equal to "
+              f"hostref ({card})", flush=True)
 
         # Device-resident batch: encode_blocks whole, and stage by stage.
         blocks, nv = kernel_batch(torch, data, last_row=N)
         t_all = cuda_ms(torch, lambda: dev.encode_blocks(blocks, nv, W), 5)
         stages, total, share = stage_ms(torch, dev, kernels, blocks, nv, W)
-        print(f"device-resident [{c}]: encode_blocks {t_all:.3f} ms per "
-              f"{B}x{N} batch = {KERNEL_BYTES / t_all / 1e6:.4f} GB/s; "
+        print(f"device-resident encode [{c}]: encode_blocks {t_all:.3f} ms "
+              f"per {B}x{N} batch = {KERNEL_BYTES / t_all / 1e6:.4f} GB/s; "
               f"stages in one pass (median of 5) "
               + ", ".join(f"{k} {v:.4f}" for k, v in stages.items())
               + f" ms, sum {total:.3f} ms; build_trees share "
               f"{100 * share:.1f}% ({card})", flush=True)
-        del blocks, nv, stream, back
+        del blocks, nv
+
+        # Decode: the device route (the default), then the host route.
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        for k in dec.COUNTS:
+            dec.COUNTS[k] = 0
+        t0 = time.perf_counter()
+        back = dec.decode(stream)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        used = {k: kernels.LAUNCHES[k] for k in decode_kernels}
+        counts = dict(dec.COUNTS)
+        for k in decode_kernels:
+            launches[k] += used[k]
+        check(back == data, f"{c}: round trip through device decode failed")
+        check(all(v > 0 for v in used.values()),
+              f"{c}: a kernel was not launched by the decode run: {used}")
+        nblocks = counts["host_decoded_blocks"] + counts["device_decoded_blocks"]
+        check(counts["host_decoded_blocks"] <= HOST_SHARE_MAX * nblocks,
+              f"{c}: too many blocks walked on the host: {counts}")
+        t1 = time.perf_counter()
+        host = dec.decode(stream, use_device=False)
+        t_host = time.perf_counter() - t1
+        check(host == back, f"{c}: device and host routes differ")
+        print(f"slice decode [{c}]: device route {len(back) / wall / 1e9:.4f}"
+              f" GB/s end to end ({wall:.3f} s); host route "
+              f"{len(host) / t_host / 1e9:.4f} GB/s ({t_host:.3f} s); "
+              f"launches {used}; blocks {counts}; equal to the input and to "
+              f"the host route ({card})", flush=True)
+
+        wall_p, spans, busy = profile_decode(torch, dec, stream)
+        print(f"decode profile [{c}]: wall {wall_p:.3f} ms; spans "
+              + ", ".join(f"{k.split('.')[-1]} {spans.get(k, 0.0):.3f}"
+                          for k in DECODE_SPANS)
+              + f" ms; device busy {busy:.3f} ms = "
+              f"{100 * busy / wall_p:.1f}% of the wall (torch.profiler, "
+              f"overhead included; {card})", flush=True)
+
+        # Device-resident plans, the ones the decode run launched on:
+        # each kernel against its twin, then decode_blocks whole and stage
+        # by stage.
+        plans, _n = device_plans(torch, dec, stream)
+        check(len(plans) == used["chain"],
+              f"{c}: {len(plans)} plans, but the decode run launched "
+              f"{used['chain']}")
+        for i, p in enumerate(plans):
+            e = against_twins(torch, kernels, tops, p)[0]
+            for k, v in e.items():
+                errs[k] = max(errs[k], v)
+            check(not any(e.values()),
+                  f"{c} plan {i}: a decode kernel disagrees with its twin "
+                  f"(max |err| {e})")
+            args = (p["words"], p["tables"], p["n_sym"], p["caps"], p["NP"],
+                    p["OUTW"], p["ns"])
+            t_all = cuda_ms(torch, lambda: tops.decode_blocks(*args), 3)
+            stages, total = decode_stage_ms(torch, kernels, tops, p)
+            meta = kernels.resolve(p["words"], p["tables"], p["ns"])
+            t_twin = cuda_ms(torch, lambda: kernels.chain_plain(meta), 1, 0)
+            del meta
+            print(f"device-resident decode [{c}] plan {i}: B={p['blocks']}/"
+                  f"{p['words'].shape[0]} NP={p['NP']} NS={p['ns']}: "
+                  f"K5/K6/K4 equal their twins (max |err| "
+                  f"{max(e.values())}); decode_blocks {t_all:.3f} ms = "
+                  f"{p['out_bytes'] / t_all / 1e6:.4f} GB/s out; stages "
+                  + ", ".join(f"{k} {v:.4f}" for k, v in stages.items())
+                  + f" ms, sum {total:.3f} ms; chain twin {t_twin:.3f} ms "
+                  f"({card})", flush=True)
+        del plans, back, host
+
+        # ---- error phase: same class on both routes --------------------
+        prefix = enc.encode(data[:KERNEL_BYTES], N)
+        first, second = dec.scan_candidates(prefix)[:2]
+        flipped = None
+        for i in range(10, first.payload_off):  # a tree bit that breaks it
+            f = bytearray(prefix)
+            f[i] ^= 0x40
+            # Judged on the first block alone, on the host route.
+            if outcome(lambda: dec.decode(bytes(f[: second.off]),
+                                          use_device=False)) not in (
+                    "no error", "ReadWriteError"):
+                flipped = bytes(f)
+                break
+        check(flipped is not None, f"{c}: no tree bit flip raised")
+        cases = {"truncated": prefix[:-1], "tree-bit-flip": flipped,
+                 "trailing-garbage": prefix + b"\x01\x02\x03"}
+        for case, bad in cases.items():
+            d = outcome(lambda: dec.decode(bad))
+            h = outcome(lambda: dec.decode(bad, use_device=False))
+            check(d == h and d != "no error",
+                  f"{c}: {case}: device route {d}, host route {h}")
+            print(f"errors [{c}] {case}: {d} on both routes", flush=True)
+        del stream, prefix, flipped, cases
 
     sources = {"histogram": "histogram.cu", "symbol_layout": "layout.cu",
-               "pack": "pack.cu"}
+               "pack": "pack.cu", "resolve": "resolve.cu",
+               "chain": "chain.cu", "emit": "emit.cu"}
     replaces = {"histogram": "libhuffman_tpu/ops/device.py:145",
                 "symbol_layout": "libhuffman_tpu/ops/device.py:360",
-                "pack": "libhuffman_tpu/ops/concat_kernel.py:274"}
+                "pack": "libhuffman_tpu/ops/concat_kernel.py:274",
+                "resolve": "libhuffman_tpu/ops/decode_v3.py:212",
+                "chain": "libhuffman_tpu/ops/decode_v3.py:331",
+                "emit": "libhuffman_tpu/ops/concat_kernel.py:340"}
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda",
          "source": f"libhuffman_tpu_torch/csrc/{sources[k]}",
          "replaces": replaces[k], "launches": launches[k],
          "max_abs_err": errs[k], "ms": statistics.median(ms[k]),
-         "plain_ms": statistics.median(plain_ms[k])}
+         "plain_ms": statistics.median(plain_ms[k]),
+         "bound_ms": statistics.median(bound_bytes[k]) / HBM_BYTES_PER_MS,
+         "bound_by": "bytes",
+         # No single PyTorch call computes any of these functions.
+         "library_ms": None}
         for k in sources]}), flush=True)
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name,
+        "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
 

@@ -1,18 +1,19 @@
 """libhuffman_tpu_torch - the PyTorch and CUDA port of libhuffman_tpu.
 
-A libhuffman-wire-compatible block Huffman codec whose encode path runs on
-an NVIDIA Hopper GPU: per-block histograms, byte layout and bit packing are
+A libhuffman-wire-compatible block Huffman codec that runs on an NVIDIA
+Hopper GPU.  Encode: per-block histograms, byte layout and bit packing are
 hand-written CUDA kernels (``csrc/``, built with nvcc for sm_90a at first
 use), the tree build and code walk are plain torch on the same device, and
 the host serializes headers and assembles the stream with the native
-runtime shared with the JAX package.  Decode takes the host-exact route
-until its kernels are ported.
+runtime shared with the JAX package.  Decode: per-position codeword
+resolution, the codeword chain and the byte emission are CUDA kernels, fed
+by plans the host builds from a speculative header scan.
 
 Importing the package does no CUDA work and imports neither jax nor
 libhuffman_tpu; the encode/decode/api submodules load on first use.
 Low-level entry points: ``libhuffman_tpu_torch.encode.encode(data,
 blocksize, device=...)`` and ``libhuffman_tpu_torch.decode.decode(stream,
-use_device=False)``.
+device=...)``.
 """
 
 import importlib

@@ -3,7 +3,7 @@
 The compress half of ``libhuffman_tpu.api`` (the reference Python binding's
 ``HuffmanCompressor`` and ``compress``, huffmanfile/huffmanfile.py:294-353
 and :409-417), backed by the port's encode path.  The decompressor,
-``HuffmanFile`` and ``open`` wait for device decode.
+``HuffmanFile`` and ``open`` are not ported yet.
 
 Deliberate fix over the reference (as in ``libhuffman_tpu.api``):
 ``HuffmanCompressor.compress`` after ``flush`` raises ValueError instead of

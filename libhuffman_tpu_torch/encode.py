@@ -57,14 +57,14 @@ def _pack_params(N: int) -> int:
 
 
 def resolve_device(device) -> torch.device:
-    """The torch device to encode on.  CUDA must be present unless the
-    caller asked for the CPU by name: there is no silent CPU route."""
+    """The torch device the kernels run on.  CUDA must be present unless
+    the caller asked for the CPU by name: there is no silent CPU route."""
     d = torch.device(device)
     if d.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError(
-                "CUDA is not available; pass device='cpu' to encode with "
-                "the plain-torch twins of the kernels")
+                "CUDA is not available; pass device='cpu' to run the "
+                "plain-torch twins of the kernels")
     elif d.type != "cpu":
         raise ValueError(f"unsupported device {d}")
     return d

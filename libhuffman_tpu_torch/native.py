@@ -2,8 +2,9 @@
 
 The C++ source is shared with the JAX package and referenced by path, not
 copied.  The port uses the entry points of its encode path (batch tree
-serialization and whole-batch stream assembly) and of the host-exact decode
-route (the sequential chain scan).  The library is compiled with g++ on first
+serialization and whole-batch stream assembly), of its device decode path
+(header scan, resolve-table build, plan staging) and of the host-exact
+decode route (the sequential chain scan).  The library is compiled with g++ on first
 use into ``build/native/`` beside the package (or the directory named by
 ``LIBHUFFMAN_TPU_TORCH_NATIVE_DIR``), keyed by a hash of the source, so the
 JAX package's cache is never shared.  Every entry point has a pure-Python
@@ -20,11 +21,23 @@ import os
 import pathlib
 import subprocess
 import tempfile
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
 _ROOT = pathlib.Path(__file__).resolve().parent.parent
 _SRC = _ROOT / "native" / "huffman_native.cpp"
+
+# ctypes calls with declared argtypes release the GIL, so stream-scale
+# native passes (header scan, table build, plan staging) run in parallel
+# across host cores with plain threads.
+_POOL_WORKERS = min(8, os.cpu_count() or 1)
+
+# Resolve tables, packed two 16-bit entries per u32 cell: 4 rows LUT10 +
+# 4 rows stage 1 (128 states x 3 bits) + 2 rows tail 1 (64 states) + 3 rows
+# tails 2-4 (32 states each).  Deeper codes take the host-exact walk.
+TAB_ROWS = 13
+MAX_TABLE_DEPTH = 25  # 10 + 5 * 3
 
 
 def _build_dir() -> pathlib.Path:
@@ -59,6 +72,7 @@ def _lib():
     i16p = np.ctypeslib.ndpointer(np.int16, flags="C")
     i32p = np.ctypeslib.ndpointer(np.int32, flags="C")
     i64p = np.ctypeslib.ndpointer(np.int64, flags="C")
+    u32p = np.ctypeslib.ndpointer(np.uint32, flags="C")
     u64p = np.ctypeslib.ndpointer(np.uint64, flags="C")
     lib.serialize_trees.argtypes = [i32p, i32p, i32p, ctypes.c_int32, i16p, i32p]
     lib.serialize_trees.restype = None
@@ -71,6 +85,14 @@ def _lib():
         u64p, i16p, i32p, ctypes.c_int64, i8p, ctypes.c_int64, i64p,
         ctypes.c_int32, i8p]
     lib.assemble_blocks.restype = ctypes.c_int64
+    lib.build_decode_tables_batch.argtypes = [
+        i16p, i64p, i32p, ctypes.c_int32, u32p, i32p, i32p, i32p]
+    lib.build_decode_tables_batch.restype = None
+    lib.find_headers.argtypes = [i8p, ctypes.c_int64, i64p, ctypes.c_int64]
+    lib.find_headers.restype = ctypes.c_int64
+    lib.stage_plan.argtypes = [
+        i8p, ctypes.c_int64, i64p, i64p, ctypes.c_int32, ctypes.c_int64, u32p]
+    lib.stage_plan.restype = None
     return lib
 
 
@@ -136,3 +158,84 @@ def assemble_blocks(n_sym: np.ndarray, trees: np.ndarray,
     if n != total:
         raise RuntimeError(f"native assembly wrote {n} bytes, expected {total}")
     return out.tobytes()
+
+
+def build_decode_tables(bufs: np.ndarray, offs: np.ndarray, lens: np.ndarray):
+    """Concatenated int16 wire trees -> per-block resolve tables.
+
+    Returns (tables[B, TAB_ROWS, 128] uint32, nstages[B], mindepth[B],
+    maxdepth[B]); nstages -1 marks host-route blocks (1-bit codes,
+    over-capacity state cuts, or depth > MAX_TABLE_DEPTH), -2 a tree with
+    no root.  Threaded above 256 trees."""
+    B = len(offs)
+    tables = np.empty((B, TAB_ROWS, 128), np.uint32)
+    nstages = np.empty(B, np.int32)
+    mindep = np.empty(B, np.int32)
+    maxdep = np.empty(B, np.int32)
+    bufs = np.ascontiguousarray(bufs, np.int16)
+    offs = np.ascontiguousarray(offs, np.int64)
+    lens = np.ascontiguousarray(lens, np.int32)
+    nw = _POOL_WORKERS
+    if B < 256 or nw <= 1:
+        _lib().build_decode_tables_batch(
+            bufs, offs, lens, B, tables, nstages, mindep, maxdep)
+        return tables, nstages, mindep, maxdep
+
+    def chunk(i):
+        lo, hi = B * i // nw, B * (i + 1) // nw
+        if lo == hi:
+            return
+        # The entry point indexes its outputs from 0: pass chunk views.
+        _lib().build_decode_tables_batch(
+            bufs, np.ascontiguousarray(offs[lo:hi]),
+            np.ascontiguousarray(lens[lo:hi]), hi - lo,
+            tables[lo:hi], nstages[lo:hi], mindep[lo:hi], maxdep[lo:hi])
+
+    with ThreadPoolExecutor(nw) as ex:
+        list(ex.map(chunk, range(nw)))
+    return tables, nstages, mindep, maxdep
+
+
+def _find_headers_seg(data: np.ndarray) -> np.ndarray:
+    cap = max(1024, len(data) // 4096)
+    out = np.empty(cap, np.int64)
+    k = int(_lib().find_headers(data, len(data), out, cap))
+    if k > cap:
+        out = np.empty(k, np.int64)
+        k = int(_lib().find_headers(data, len(data), out, k))
+    return out[:k].copy()
+
+
+def find_headers(data: np.ndarray) -> np.ndarray:
+    """Offsets of plausible block headers (format.find_candidate_headers in
+    native code).  Threaded from 8 MiB: segments overlap by the 10-byte
+    header window and each keeps only offsets inside its own range."""
+    data = np.ascontiguousarray(data, np.uint8)
+    n = len(data)
+    nw = _POOL_WORKERS
+    if n < (8 << 20) or nw <= 1:
+        return _find_headers_seg(data)
+    bounds = [n * i // nw for i in range(nw + 1)]
+
+    def seg(i):
+        lo, hi = bounds[i], min(bounds[i + 1] + 9, n)
+        offs = _find_headers_seg(data[lo:hi])
+        return offs[offs < bounds[i + 1] - lo] + lo
+
+    with ThreadPoolExecutor(nw) as ex:
+        parts = list(ex.map(seg, range(nw)))
+    return np.concatenate(parts)
+
+
+def stage_plan(data: np.ndarray, offs: np.ndarray, caps: np.ndarray,
+               row_words: int) -> np.ndarray:
+    """Per block, ``caps[b]`` payload bytes from ``offs[b]`` (-1: none) as a
+    zero-padded row of ``row_words`` big-endian u32 words, the resolve
+    kernel's input."""
+    B = len(offs)
+    out = np.empty((B, row_words), np.uint32)
+    _lib().stage_plan(
+        np.ascontiguousarray(data, np.uint8), len(data),
+        np.ascontiguousarray(offs, np.int64),
+        np.ascontiguousarray(caps, np.int64), B, row_words, out)
+    return out

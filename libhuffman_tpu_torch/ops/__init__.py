@@ -1,2 +1,3 @@
 """Compute kernels: host-exact reference semantics, the hand-written CUDA
-kernels of the encode path, and their plain-torch twins."""
+kernels of the encode and decode paths with their plain-torch twins, and
+the device stages around them."""

@@ -1,7 +1,8 @@
 """Build and bind the CUDA kernels of ``csrc/``.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` for Hopper (``sm_90a``)
-into one shared library with a plain C interface, then loaded with ctypes.
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` for Hopper
+(``sm_90a``), all at once, and the objects are linked into one shared library
+with a plain C interface, then loaded with ctypes.
 No source includes PyTorch's headers, so a build takes seconds, not the
 minutes a ``torch.utils.cpp_extension`` build takes.  The library lands in
 ``build/kernels/`` beside the package (or the directory named by
@@ -28,8 +29,7 @@ import tempfile
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
-NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-shared", "-Xcompiler",
-              "-fPIC"]
+NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
 
 def build_dir() -> pathlib.Path:
@@ -51,8 +51,26 @@ def find_nvcc() -> str | None:
     return shutil.which("nvcc")
 
 
-def nvcc_command(nvcc: str, out: pathlib.Path) -> list[str]:
-    return [nvcc, *NVCC_FLAGS, "-o", str(out), *map(str, sources())]
+def compile_command(nvcc: str, src: pathlib.Path, obj: pathlib.Path
+                    ) -> list[str]:
+    return [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+
+
+def link_command(nvcc: str, objs: list[pathlib.Path], out: pathlib.Path
+                 ) -> list[str]:
+    return [nvcc, *ARCH_FLAGS, "-shared", "-o", str(out), *map(str, objs)]
+
+
+def _run_all(cmds: list[list[str]]) -> None:
+    """Run the commands in parallel; raise with the first failure's
+    stderr."""
+    procs = [subprocess.Popen(c, stdout=subprocess.DEVNULL,
+                              stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    errs = [(p.communicate()[1], p.returncode) for p in procs]
+    for err, rc in errs:
+        if rc != 0:
+            raise RuntimeError(f"nvcc failed (exit {rc}):\n{err}")
 
 
 def build() -> pathlib.Path:
@@ -74,18 +92,14 @@ def build() -> pathlib.Path:
             "nvcc not found (looked in $CUDA_HOME/bin and on PATH): the CUDA "
             "kernels of libhuffman_tpu_torch cannot be built")
     out_dir.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    try:
-        res = subprocess.run(nvcc_command(nvcc, pathlib.Path(tmp)),
-                             capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed (exit {res.returncode}):\n{res.stderr}")
-        os.replace(tmp, so)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    # Private object names and a rename into place: a process that
+    # builds at the same time must never load a half-written library.
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        objs = [pathlib.Path(tmp) / f"{p.stem}.o" for p in srcs]
+        _run_all([compile_command(nvcc, p, o) for p, o in zip(srcs, objs)])
+        lib = pathlib.Path(tmp) / "lib.so"
+        _run_all([link_command(nvcc, objs, lib)])
+        os.replace(lib, so)
     return so
 
 
@@ -100,8 +114,12 @@ def library() -> ctypes.CDLL:
     lib.huff_layout.argtypes = [p, p, p, p, p, p, i, i, p]
     lib.huff_pack.argtypes = [p, p, p, p, p, i, i, i, p]
     lib.huff_pack_smem_words.argtypes = []
+    lib.huff_resolve.argtypes = [p, p, p, i, i, i, p]
+    lib.huff_chain.argtypes = [p, p, p, p, p, i, i, p]
+    lib.huff_emit.argtypes = [p, p, p, i, i, i, p]
     for fn in (lib.huff_histogram, lib.huff_layout, lib.huff_pack,
-               lib.huff_pack_smem_words):
+               lib.huff_pack_smem_words, lib.huff_resolve, lib.huff_chain,
+               lib.huff_emit):
         fn.restype = ctypes.c_int
     lib.huff_error_string.argtypes = [i]
     lib.huff_error_string.restype = ctypes.c_char_p

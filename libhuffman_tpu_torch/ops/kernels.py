@@ -1,4 +1,4 @@
-"""Wrappers of the encode path's CUDA kernels, and their plain-torch twins.
+"""Wrappers of the CUDA kernels, and their plain-torch twins.
 
 Each wrapper checks its inputs (device, dtype, shape, contiguity) and then
 takes one of two routes, chosen by where the tensors lie and nothing else:
@@ -20,6 +20,12 @@ widen them to int64 where they do arithmetic.
   histogram       ops/device.py:145 histogram_pallas            csrc/histogram.cu
   symbol_layout   ops/device.py:360 symbol_layout_pallas        csrc/layout.cu
   pack            ops/concat_kernel.py:274 concat_words_ovf     csrc/pack.cu
+  resolve         ops/decode_v3.py:212 resolve_blocks           csrc/resolve.cu
+  chain           ops/decode_v3.py:331 chain_emit               csrc/chain.cu
+  emit            ops/concat_kernel.py:340 concat_groups_ovf    csrc/emit.cu
+
+The decode kernels take and give natural-order, block-major planes: the
+TPU's pair-packed, position-major and bit-reversed layouts are not copied.
 """
 
 from __future__ import annotations
@@ -27,10 +33,12 @@ from __future__ import annotations
 import torch
 
 from ..format import ASCII_COUNT, HISTOGRAM_LEN
+from ..native import TAB_ROWS
 from . import _build
 
 # Kernel launches per wrapper since the last reset_launches().
-LAUNCHES = {"histogram": 0, "symbol_layout": 0, "pack": 0}
+LAUNCHES = {"histogram": 0, "symbol_layout": 0, "pack": 0, "resolve": 0,
+            "chain": 0, "emit": 0}
 
 
 def reset_launches() -> None:
@@ -229,3 +237,228 @@ def pack_plain(C: torch.Tensor, L: torch.Tensor, W: int):
         [(words >> 24) & 255, (words >> 16) & 255, (words >> 8) & 255,
          words & 255], dim=-1).to(torch.uint8).reshape(B, 4 * W)
     return payload, total > 32 * W
+
+
+# --------------------------------------------------------------------------
+# K5 resolve
+# --------------------------------------------------------------------------
+
+MAX_NS = 5          # lookup stages past LUT10: codes up to 10 + 3 * 5 bits
+_DONE = 1 << 15     # terminal-entry flag of a table entry
+
+
+def resolve(words: torch.Tensor, tables: torch.Tensor, NS: int
+            ) -> torch.Tensor:
+    """The codeword that starts at every bit position of every block.
+
+    words (B, W + 128) int32: each block's payload as big-endian u32 words
+    (bit pattern), zero-padded (a window reads one word ahead); tables
+    (B, 13, 128) int32: the native resolve tables; NS in [0, 5]: lookup
+    stages past LUT10 ->
+    meta (B, 32 W) int16: the u16 entry of position p at [b, p],
+    DONE(15) | aux(13:6) | len(5:0); len 0 marks a dead position whose aux
+    is the fail offset, else aux is the decoded symbol."""
+    if words.dim() != 2 or words.shape[1] <= 128:
+        raise ValueError("words must be (B, W + 128) with W >= 1")
+    B, Wp = words.shape
+    W = Wp - 128
+    dev = words.device
+    _check(words, "words", torch.int32, (B, Wp), dev)
+    _check(tables, "tables", torch.int32, (B, TAB_ROWS, 128), dev)
+    if not 0 <= NS <= MAX_NS:
+        raise ValueError(f"NS must be in [0, {MAX_NS}], got {NS}")
+    if not _on_cuda(words):
+        return resolve_plain(words, tables, NS)
+    meta = torch.empty((B, 32 * W), dtype=torch.int16, device=dev)
+    if B == 0:
+        return meta
+    with torch.cuda.device(dev):
+        err = _build.library().huff_resolve(
+            words.data_ptr(), tables.data_ptr(), meta.data_ptr(), B, W, NS,
+            _stream(dev))
+    _build.check(err, "resolve")
+    LAUNCHES["resolve"] += 1
+    return meta
+
+
+def _entry(tab: torch.Tensor, base: int, i: torch.Tensor) -> torch.Tensor:
+    """u16 entry i of the packed table region starting at cell ``base``:
+    cell base + (i >> 1), half i & 1.  tab (B, 13 * 128) int64."""
+    cell = torch.gather(tab, 1, base + (i >> 1))
+    return (cell >> ((i & 1) << 4)) & 0xFFFF
+
+
+def resolve_plain(words: torch.Tensor, tables: torch.Tensor, NS: int
+                  ) -> torch.Tensor:
+    """Twin of :func:`resolve`: the same lookup cascade with gathers on
+    int64, one bit phase s of every word at a time."""
+    B, Wp = words.shape
+    W = Wp - 128
+    w = words.long() & _M32
+    # The 64-bit pair (word, next word); the window of position 32 i + s is
+    # its bits [32 - s, 64 - s), so no shift ever reaches 32.
+    pair = (w[:, :W] << 32) | w[:, 1 : W + 1]
+    tab = tables.reshape(B, TAB_ROWS * 128).long() & _M32
+    meta = torch.empty((B, W, 32), dtype=torch.int16, device=words.device)
+    for s in range(32):
+        win = (pair >> (32 - s)) & _M32
+        e = _entry(tab, 0, (win >> 22) & 511)
+        # Unary-root fold: a leading 1 bit never starts a code, so LUT10 has
+        # 512 live entries and the other half is the dead entry DONE.
+        e = torch.where((win >> 31) != 0, _DONE, e)
+        for k in range(1, NS + 1):
+            if k == 1:   # stage 1: 128 states x 3 bits
+                ek = _entry(tab, 512, ((e & 127) << 3) | ((win >> 19) & 7))
+            elif k == 2:  # tail 1: 64 states
+                ek = _entry(tab, 1024, ((e & 63) << 3) | ((win >> 16) & 7))
+            else:        # tails 2-4: 32 states
+                bits3 = (win >> (16 - 3 * (k - 2))) & 7
+                ek = _entry(tab, 1280 + 128 * (k - 3),
+                            ((e & 31) << 3) | bits3)
+            e = torch.where((e & _DONE) != 0, e, ek)
+        meta[:, :, s] = ((e ^ 0x8000) - 0x8000).to(torch.int16)
+    return meta.reshape(B, 32 * W)
+
+
+# --------------------------------------------------------------------------
+# K6 chain
+# --------------------------------------------------------------------------
+
+def chain(meta: torch.Tensor):
+    """Which positions start a codeword, and each 8-position group's symbols.
+
+    meta (B, NP) int16 from :func:`resolve`, NP a multiple of 32.  Position
+    0 starts; a start p with len(p) in [1, 31] makes p + len(p) a start;
+    len 0 (a dead position) and the unused 32..63 end the chain, which
+    otherwise runs on through the zero padding up to NP.  Returns, all
+    int32 (u32 bit patterns):
+      start (B, NP/32): bit t of word j = position 32 j + t starts;
+      gw (B, NP/8): the aux bytes of group g's starts in order, each
+        (gw << 8) | aux in u32, then left-aligned by (32 - 8 c) & 31 for the
+        group's count c (a dead start's aux byte, its fail offset, counts);
+      gc4 (B, NP/32): byte k of word j = count of group 4 j + k;
+      gr32 (B, NP/32): starts through stripe j (a running total)."""
+    if meta.dim() != 2:
+        raise ValueError("meta must be (B, NP)")
+    B, NP = meta.shape
+    dev = meta.device
+    _check(meta, "meta", torch.int16, (B, NP), dev)
+    if NP == 0 or NP % 32:
+        raise ValueError(f"NP must be a positive multiple of 32, got {NP}")
+    if not _on_cuda(meta):
+        return chain_plain(meta)
+    # Zero-filled: the kernel writes only the words its walk passes.
+    start = torch.zeros((B, NP // 32), dtype=torch.int32, device=dev)
+    gw = torch.zeros((B, NP // 8), dtype=torch.int32, device=dev)
+    gc4 = torch.zeros((B, NP // 32), dtype=torch.int32, device=dev)
+    gr32 = torch.empty((B, NP // 32), dtype=torch.int32, device=dev)
+    if B == 0:
+        return start, gw, gc4, gr32
+    with torch.cuda.device(dev):
+        err = _build.library().huff_chain(
+            meta.data_ptr(), start.data_ptr(), gw.data_ptr(), gc4.data_ptr(),
+            gr32.data_ptr(), B, NP, _stream(dev))
+    _build.check(err, "chain")
+    LAUNCHES["chain"] += 1
+    return start, gw, gc4, gr32
+
+
+def _as_i32(x: torch.Tensor) -> torch.Tensor:
+    """int64 values in [0, 2^32) -> int32 tensor of the same bit pattern."""
+    return (((x & _M32) ^ (1 << 31)) - (1 << 31)).to(torch.int32)
+
+
+def chain_plain(meta: torch.Tensor):
+    """Twin of :func:`chain`: the start set by pointer doubling.  With
+    J_0(p) = p + len(p) (NP for an end of the chain) and J_{k+1} = J_k o J_k,
+    round k adds J_k(S) to S; after log2(NP) + 1 rounds S is the whole orbit
+    of position 0."""
+    B, NP = meta.shape
+    dev = meta.device
+    e = meta.long() & 0xFFFF
+    ln = e & 63
+    pos = torch.arange(NP, device=dev)
+    nxt = torch.where((ln >= 1) & (ln <= 31), pos + ln, NP).clamp(max=NP)
+    # Column NP is the sink: the end of the chain maps to itself.
+    J = torch.cat([nxt, torch.full((B, 1), NP, device=dev)], dim=1)
+    S = torch.zeros((B, NP + 1), dtype=torch.bool, device=dev)
+    S[:, 0] = True
+    for _ in range(NP.bit_length() + 1):
+        S = S.scatter(1, torch.where(S, J, NP), S)
+        J = torch.gather(J, 1, J)
+    S = S[:, :NP]
+    sl = S.long()
+    start = _as_i32((sl.view(B, NP // 32, 32)
+                     << torch.arange(32, device=dev)).sum(-1))
+    cnt = sl.view(B, NP // 8, 8).sum(-1)                     # (B, NG)
+    # Rank r of each start within its group; in u32 the left-aligned group
+    # word holds aux_r at bit 8 (c - 1 - r) + ((32 - 8 c) & 31) where that
+    # is below 32 (the (gw << 8) | aux register keeps the last four).
+    r = (torch.cumsum(sl.view(B, NP // 8, 8), -1) - 1)
+    c = cnt[:, :, None]
+    sh = 8 * (c - 1 - r) + ((32 - 8 * c) & 31)
+    aux = ((e >> 6) & 255).view(B, NP // 8, 8)
+    gw = torch.where(S.view(B, NP // 8, 8) & (sh < 32),
+                     aux << sh.clamp(0, 31), 0).sum(-1)
+    gc4 = (cnt.view(B, NP // 32, 4)
+           << torch.arange(0, 32, 8, device=dev)).sum(-1)
+    gr32 = torch.cumsum(sl.view(B, NP // 32, 32).sum(-1), dim=1)
+    return start, _as_i32(gw), _as_i32(gc4), gr32.to(torch.int32)
+
+
+# --------------------------------------------------------------------------
+# K4 emit
+# --------------------------------------------------------------------------
+
+def emit(gw: torch.Tensor, gc4: torch.Tensor, OUTW: int) -> torch.Tensor:
+    """Decoded bytes: each group's string of count x 8 bits, joined.
+
+    gw (B, NG) int32 left-aligned group words from :func:`chain`; gc4
+    (B, NG/4) int32 packed counts (byte k of word j = count of group
+    4 j + k, live-masked by the caller); OUTW words ->
+    out (B, 4 OUTW) uint8: the first 4 OUTW bytes of the concatenation,
+    zero-filled.  Byte i of a group's string is byte i of its word from
+    the top for i < 4, and zero past it.  Bytes past 4 OUTW are dropped."""
+    if gw.dim() != 2:
+        raise ValueError("gw must be (B, NG)")
+    B, NG = gw.shape
+    dev = gw.device
+    if NG % 4:
+        raise ValueError(f"NG must be a multiple of 4, got {NG}")
+    _check(gw, "gw", torch.int32, (B, NG), dev)
+    _check(gc4, "gc4", torch.int32, (B, NG // 4), dev)
+    if OUTW <= 0:
+        raise ValueError("OUTW must be positive")
+    if not _on_cuda(gw):
+        return emit_plain(gw, gc4, OUTW)
+    out = torch.empty((B, 4 * OUTW), dtype=torch.uint8, device=dev)
+    if B == 0:
+        return out
+    with torch.cuda.device(dev):
+        err = _build.library().huff_emit(
+            gw.data_ptr(), gc4.data_ptr(), out.data_ptr(), B, NG, OUTW,
+            _stream(dev))
+    _build.check(err, "emit")
+    LAUNCHES["emit"] += 1
+    return out
+
+
+def emit_plain(gw: torch.Tensor, gc4: torch.Tensor, OUTW: int
+               ) -> torch.Tensor:
+    """Twin of :func:`emit`: a cumsum of the counts gives each group its
+    byte offset, and a scatter places its bytes (column 4 OUTW collects and
+    discards what falls past the budget)."""
+    B, NG = gw.shape
+    dev = gw.device
+    cap = 4 * OUTW
+    shifts = torch.arange(0, 32, 8, device=dev)
+    cnt = ((gc4.long()[:, :, None] >> shifts) & 255).reshape(B, NG)
+    off = torch.cumsum(cnt, dim=1) - cnt
+    i = torch.arange(4, device=dev)
+    byte = (gw.long()[:, :, None] >> (24 - 8 * i)) & 255      # (B, NG, 4)
+    idx = off[:, :, None] + i
+    live = (i < cnt[:, :, None]) & (idx < cap)
+    out = torch.zeros((B, cap + 1), dtype=torch.uint8, device=dev)
+    out.scatter_(1, torch.where(live, idx, cap).reshape(B, 4 * NG),
+                 byte.to(torch.uint8).reshape(B, 4 * NG))
+    return out[:, :cap].contiguous()

@@ -1,0 +1,260 @@
+"""The port's decode kernels and ``ops/decode`` against the JAX package.
+
+Each decode kernel's plain-torch twin (the route a CPU tensor takes) is held
+against the Pallas function it replaces, run on the CPU in interpret mode as
+the JAX package's own tests run it, after the JAX outputs are moved to the
+port's natural, block-major order: K5 ``resolve_blocks`` (pair plane), K6
+``chain_emit`` (position-major planes) and K4 ``concat_groups_ovf`` through
+``_emit_from_chain``.  The port's ``decode_blocks`` is held against
+``decode_v3.decode_blocks`` on device plans of small host-codec streams.
+Integer outputs, compared exactly.  The tests marked ``cuda`` hold each
+CUDA kernel against its twin on the card and skip without one.
+"""
+
+from types import SimpleNamespace
+
+import numpy as np
+import pytest
+import torch
+
+from libhuffman_tpu_torch import decode as tdec
+from libhuffman_tpu_torch import native as tnative
+from libhuffman_tpu_torch.format import parse_block_header
+from libhuffman_tpu_torch.ops import decode as tops
+from libhuffman_tpu_torch.ops import hostref, kernels
+from torch_port_util import corpora, tensor, u32
+
+_CORPUS = corpora()
+
+
+@pytest.fixture(scope="module")
+def jx():
+    """The JAX package's decode functions, run on the CPU (Pallas in
+    interpret mode, as its own tests run them)."""
+    import jax.numpy as jnp
+
+    from libhuffman_tpu import decode as jdec
+    from libhuffman_tpu.ops import decode_v3
+
+    return SimpleNamespace(a=jnp.asarray, v3=decode_v3, dec=jdec)
+
+
+def _tables(block: bytes):
+    """Native resolve tables of one encoded block: (tables (1, 13, 128)
+    uint32, NS)."""
+    tree = np.asarray(parse_block_header(memoryview(block), 0).tree, np.int16)
+    tab, ns, _mi, _ma = tnative.build_decode_tables(
+        tree, np.array([0], np.int64), np.array([len(tree)], np.int32))
+    assert int(ns[0]) >= 0
+    return tab, int(ns[0])
+
+
+def _fib_block() -> bytes:
+    """Fibonacci frequencies: codes deeper than 10 bits (NS >= 1) with few
+    live states at cut 10, the JAX package's narrow-stage construction."""
+    vals = []
+    a, b = 1, 1
+    for s in range(18):
+        vals += [s] * a
+        a, b = b, a + b
+    return hostref.encode_block(np.array(vals, np.uint8))
+
+
+def _natural_meta(meta) -> np.ndarray:
+    """JAX pair plane (B, 16, WR, 128) u32 -> (B, 32 W) uint16: positions
+    32 w + 2 s2 and + 1 are the low and high halves of [b, s2, w]."""
+    m = np.asarray(meta)
+    B = m.shape[0]
+    m = m.reshape(B, 16, -1)
+    pairs = np.stack([m & 0xFFFF, m >> 16], axis=-1)  # (B, 16, W, 2)
+    return pairs.transpose(0, 2, 1, 3).reshape(B, -1).astype(np.uint16)
+
+
+# --------------------------------------------------------------------------
+# K5 resolve
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("tree,narrow", [("shallow", False), ("fib", False),
+                                         ("fib", True)])
+def test_resolve_twin_matches_pallas(jx, tree, narrow):
+    shallow, ns0 = _tables(hostref.encode_block(
+        np.frombuffer(b"abracadabra, a shallow tree " * 40, np.uint8)))
+    assert ns0 == 0
+    fib, nsf = _tables(_fib_block())
+    assert nsf >= 1
+    if tree == "shallow":
+        tables, NS = np.concatenate([shallow, shallow]), 0
+    else:
+        # Row 1: a shallow tree under a deeper plan's NS, as in a mixed plan.
+        tables, NS = np.concatenate([fib, shallow]), nsf
+        assert bool(jx.dec._narrow_flags(tables).all()) or not narrow
+    rng = np.random.default_rng(3 + NS)
+    WR = 4
+    words = rng.integers(0, 1 << 32, (2, WR + 1, 128), dtype=np.uint64
+                         ).astype(np.uint32)
+    words[1, 2] = 0  # a zero run: the padding's long chains
+    want = _natural_meta(jx.v3.resolve_blocks(jx.a(words), jx.a(tables), NS,
+                                              narrow))
+    got = kernels.resolve(tensor(words.reshape(2, -1)), tensor(tables), NS)
+    assert got.shape == (2, 32 * 128 * WR) and got.dtype == torch.int16
+    np.testing.assert_array_equal(got.numpy().view(np.uint16), want)
+    # Dead entries (len 0) occur: a leading 1 bit is always one.
+    assert ((want & 63) == 0).any()
+
+
+# --------------------------------------------------------------------------
+# K6 chain
+# --------------------------------------------------------------------------
+
+def _chain_input(maxl: int):
+    """(B, NP) u16 entries aux(13:6) | len(5:0): random lengths with a dead
+    position at [0, 5], an unused length (40) ending block 1's chain at a
+    start, and eight 1-bit starts in block 2's first group."""
+    rng = np.random.default_rng(7)
+    NP, B = 1024, 3
+    lens = rng.integers(2, maxl + 1, (B, NP)).astype(np.uint16)
+    lens[0, 5] = 0
+    lens[1, 0], lens[1, 2] = 2, 40
+    lens[2, :8] = 1
+    syms = rng.integers(0, 256, (B, NP)).astype(np.uint16)
+    return (syms << 6) | lens
+
+
+@pytest.mark.parametrize("maxl", [10, 25])
+def test_chain_twin_matches_pallas(jx, maxl):
+    m16 = _chain_input(maxl).astype(np.uint32)
+    meta2 = m16[:, 0::2] | (m16[:, 1::2] << 16)  # JAX pair plane rows
+    want = [np.asarray(x).T for x in jx.v3.chain_emit(jx.a(meta2.T))]
+    got = kernels.chain(tensor(m16.astype(np.uint16).view(np.int16)))
+    for name, w, g in zip(("start", "gw", "gc4", "gr32"), want, got):
+        assert g.dtype == torch.int32
+        np.testing.assert_array_equal(u32(g), w, err_msg=name)
+    start = u32(got[0])
+    assert start[1, 0] == 0b101          # ends at the length-40 start
+    assert start[2, 0] & 0xFF == 0xFF    # eight starts in one group
+
+
+# --------------------------------------------------------------------------
+# K4 emit, and decode_blocks, on plans of real streams
+# --------------------------------------------------------------------------
+
+def _stream(corrupt: bool = False):
+    """Five 4 KiB text blocks from the host codec; ``corrupt`` overwrites
+    part of the third block's payload with 0xFF bytes (a leading 1 bit is
+    dead under the unary root, so the chain fails there)."""
+    data = _CORPUS.text(18000)
+    s = bytearray(hostref.encode(data, 4096))
+    if corrupt:
+        offs = [c.off for c in tdec.scan_candidates(bytes(s))]
+        hdr = parse_block_header(memoryview(bytes(s)), offs[2])
+        s[hdr.payload_off + 100 : hdr.payload_off + 108] = b"\xff" * 8
+    return bytes(s), data
+
+
+def _jax_chain_planes(jx, p):
+    """JAX resolve + chain of a plan: (gw_t (NG, B), gc4m (B, NG/4) live-
+    masked as decode_v3.decode_blocks masks it)."""
+    B = p.words.shape[0]
+    meta = jx.v3.resolve_blocks(jx.a(p.words), jx.a(p.tables), p.ns)
+    e2 = np.asarray(meta).reshape(B, 16, p.NP // 32)
+    meta_t = np.transpose(e2, (2, 1, 0)).reshape(p.NP // 2, B)
+    _s, gw_t, gc4_t, _g = jx.v3.chain_emit(jx.a(meta_t))
+    gc4 = u32(tops.live_mask(tensor(np.asarray(gc4_t).T), tensor(p.caps)))
+    return np.asarray(gw_t), gc4
+
+
+def test_emit_twin_matches_pallas(jx):
+    stream, _ = _stream()
+    plans, _ = jx.dec.build_device_plans(stream)
+    p = plans[0]
+    gw_t, gc4 = _jax_chain_planes(jx, p)
+    want, ovf = jx.v3._emit_from_chain(jx.a(gw_t), jx.a(gc4), p.OUTW, None)
+    got = kernels.emit(tensor(gw_t.T), tensor(gc4), p.OUTW)
+    assert not np.asarray(ovf).any()
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    # The TPU's capacity clamp (ECW) has no counterpart: compare on the
+    # blocks a tight clamp leaves unflagged.
+    want8, ovf8 = jx.v3._emit_from_chain(jx.a(gw_t), jx.a(gc4), p.OUTW, 8)
+    keep = ~np.asarray(ovf8)
+    assert keep.any() and not keep.all()
+    np.testing.assert_array_equal(got.numpy()[keep], np.asarray(want8)[keep])
+
+
+@pytest.mark.parametrize("corrupt", [False, True], ids=["clean", "corrupt"])
+def test_decode_blocks_matches_decode_v3(jx, corrupt):
+    stream, data = _stream(corrupt)
+    plans, _ = jx.dec.build_device_plans(stream)
+    assert plans
+    flagged = False  # a real block (not a padding row) flagged corrupt
+    for p in plans:
+        want = jx.v3.decode_blocks(jx.a(p.words), jx.a(p.tables),
+                                   jx.a(p.n_sym), jx.a(p.caps), p.NP, p.OUTW,
+                                   p.ns, None, False)
+        out, end_bit, cor, bad_bit, ovf = [np.asarray(x) for x in want]
+        got = tops.decode_blocks(
+            tensor(p.words.reshape(len(p.words), -1)), tensor(p.tables),
+            tensor(p.n_sym), tensor(p.caps), p.NP, p.OUTW, p.ns)
+        g_out, g_end, g_cor, g_bad, g_ovf = [x.numpy() for x in got]
+        for b, (c, *_rest) in enumerate(p.batch):
+            np.testing.assert_array_equal(g_out[b, : c.n_sym],
+                                          out[b, : c.n_sym])
+        np.testing.assert_array_equal(g_end, end_bit)
+        np.testing.assert_array_equal(g_cor, cor)
+        np.testing.assert_array_equal(g_bad, bad_bit)
+        assert not g_ovf.any() and not ovf.any()
+        flagged |= bool(g_cor[: len(p.batch)].any())
+    assert flagged == corrupt
+
+
+# --------------------------------------------------------------------------
+# On the card: each CUDA kernel against its twin (skipped without CUDA)
+# --------------------------------------------------------------------------
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["text", "mixed"])
+def test_cuda_decode_kernels_match_twins(cuda, family):
+    """K5, K6 and K4 on the card against their twins, on the plans of a
+    1 MiB stream, and the plan decode against its CPU run."""
+    data = _CORPUS.FAMILIES[family](1 << 20)
+    plans, _ = tdec.build_device_plans(hostref.encode(data, 65536))
+    assert plans
+    for p in plans:
+        words = tensor(p.words).to(cuda)
+        tables = tensor(p.tables).to(cuda)
+        meta = kernels.resolve(words, tables, p.ns)
+        assert torch.equal(meta, kernels.resolve_plain(words, tables, p.ns))
+        planes = kernels.chain(meta)
+        for g, w in zip(planes, kernels.chain_plain(meta)):
+            assert torch.equal(g, w)
+        gc4 = tops.live_mask(planes[2], tensor(p.caps).to(cuda))
+        out = kernels.emit(planes[1], gc4, p.OUTW)
+        assert torch.equal(out, kernels.emit_plain(planes[1], gc4, p.OUTW))
+        args = (tensor(p.n_sym), tensor(p.caps), p.NP, p.OUTW, p.ns)
+        on_card = tops.decode_blocks(words, tables, *[
+            a.to(cuda) if torch.is_tensor(a) else a for a in args])
+        on_cpu = tops.decode_blocks(tensor(p.words), tensor(p.tables), *args)
+        for g, w in zip(on_card, on_cpu):
+            assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.cuda
+def test_cuda_resolve_takes_more_blocks_than_a_grid_row(cuda):
+    """A plan of 512-byte payloads may hold 2^28 / 4096 = 65536 blocks,
+    past the 65535 of a CUDA grid's y dimension."""
+    tables, _ns = _tables(hostref.encode_block(
+        np.frombuffer(b"abracadabra, a shallow tree " * 40, np.uint8)))
+    B = 65536 + 7
+    g = torch.Generator(device=cuda).manual_seed(1)
+    words = (torch.randint(0, 1 << 32, (B, 128 + 128), dtype=torch.int64,
+                           device=cuda, generator=g) - (1 << 31)
+             ).to(torch.int32)
+    tab = tensor(np.repeat(tables, B, axis=0)).to(cuda)
+    meta = kernels.resolve(words, tab, 0)
+    assert torch.equal(meta, kernels.resolve_plain(words, tab, 0))

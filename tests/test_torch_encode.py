@@ -4,7 +4,7 @@
 port's whole encode path with the kernels' plain-torch twins; its wire bytes
 must equal ``libhuffman_tpu.encode.encode`` (the JAX path, Pallas kernels in
 interpret mode on the CPU) and ``hostref.encode`` byte for byte, and the
-port's host-route decode must return the input.
+port's decode must return the input.
 """
 
 import pytest
@@ -23,7 +23,7 @@ def _check(data: bytes, bs: int, **kw):
     got = tenc.encode(data, bs, device="cpu", **kw)
     assert got == hostref.encode(data, bs)
     assert got == jenc.encode(data, bs, **kw)
-    assert tdec.decode(got, use_device=False) == data
+    assert tdec.decode(got, device="cpu") == data
 
 
 @pytest.mark.parametrize("data,bs", [
@@ -49,7 +49,7 @@ def test_multiblock_batching(bs, batch_blocks):
     data = (b"The quick brown fox jumps over the lazy dog. " * 1000)[:40000]
     got = tenc.encode(data, bs, batch_blocks=batch_blocks, device="cpu")
     assert got == hostref.encode(data, bs)
-    assert tdec.decode(got, use_device=False) == data
+    assert tdec.decode(got, device="cpu") == data
 
 
 @pytest.mark.parametrize("bs", [4096, 8192])
@@ -66,11 +66,15 @@ def test_blocksizes_off_the_pow2_packer(bs):
 
 
 def test_decode_device_route_is_not_ported():
+    """Both decode routes read the port's stream, and the device route on
+    CPU tensors counts its block as device-decoded."""
     stream = tenc.encode(b"abracadabra", 4096, device="cpu")
     assert tdec.decode(stream, use_device=False) == b"abracadabra"
-    with pytest.raises(NotImplementedError, match="M5/M6"):
-        tdec.decode(stream, use_device=True)
-    with pytest.raises(NotImplementedError):
-        tdec.decode_prefix(stream, use_device=True)
-    assert tdec.decode_prefix(stream + stream[:5]) == (b"abracadabra",
-                                                        len(stream))
+    tdec.COUNTS.update(host_decoded_blocks=0, device_decoded_blocks=0)
+    assert tdec.decode(stream, device="cpu") == b"abracadabra"
+    assert tdec.COUNTS == {"host_decoded_blocks": 0,
+                           "device_decoded_blocks": 1}
+    assert tdec.decode_prefix(stream + stream[:5], device="cpu") == (
+        b"abracadabra", len(stream))
+    assert tdec.decode_prefix(stream + stream[:5], use_device=False) == (
+        b"abracadabra", len(stream))

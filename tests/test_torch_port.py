@@ -12,7 +12,8 @@ import torch
 
 import libhuffman_tpu_torch as port
 from libhuffman_tpu.ops import hostref
-from libhuffman_tpu_torch import api, config, encode as tenc
+from libhuffman_tpu_torch import api, config, decode as tdec
+from libhuffman_tpu_torch import encode as tenc
 from libhuffman_tpu_torch.ops import _build, kernels
 from torch_port_util import ROOT
 
@@ -25,7 +26,8 @@ def test_import_pulls_in_neither_jax_nor_the_jax_package():
         "import libhuffman_tpu_torch.encode, libhuffman_tpu_torch.native\n"
         "import libhuffman_tpu_torch.ops.device, libhuffman_tpu_torch.ops._build\n"
         "import libhuffman_tpu_torch.ops.kernels, libhuffman_tpu_torch.utils.trace\n"
-        "p.compress, p.HuffmanCompressor\n"
+        "import libhuffman_tpu_torch.ops.decode, libhuffman_tpu_torch.config\n"
+        "p.compress, p.HuffmanCompressor, p.EncodeConfig\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'libhuffman_tpu'))\n"
         "print(bad, torch.cuda.is_initialized())\n"
@@ -60,8 +62,10 @@ def test_cpu_tensors_take_the_twins_and_launch_nothing():
     data = bytes(range(200)) * 50
     enc = tenc.encode(data, 4096, device="cpu")
     assert enc == hostref.encode(data, 4096)
+    assert tdec.decode(enc, device="cpu") == data
     assert kernels.LAUNCHES == {"histogram": 0, "symbol_layout": 0,
-                                "pack": 0}
+                                "pack": 0, "resolve": 0, "chain": 0,
+                                "emit": 0}
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take():
@@ -81,15 +85,34 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         kernels.pack(C, C, 0)
     with pytest.raises(ValueError):
         kernels.pack(C, C[:, :32], 16)
+    words = torch.zeros((2, 130), dtype=torch.int32)
+    tables = torch.zeros((2, 13, 128), dtype=torch.int32)
+    with pytest.raises(ValueError):
+        kernels.resolve(words, tables, 6)
+    with pytest.raises(ValueError):
+        kernels.resolve(words[:, :128].contiguous(), tables, 0)
+    with pytest.raises(TypeError):
+        kernels.chain(torch.zeros((2, 64), dtype=torch.int32))
+    with pytest.raises(ValueError):
+        kernels.chain(torch.zeros((2, 48), dtype=torch.int16))
+    with pytest.raises(ValueError):
+        kernels.emit(C, C[:, :15].contiguous(), 16)
 
 
 def test_build_targets_sm90a_into_the_build_dir():
-    cmd = _build.nvcc_command("nvcc", _build.build_dir() / "lib.so")
-    assert "arch=compute_90a,code=sm_90a" in cmd
-    assert {"-shared", "-O3", "-std=c++17"} <= set(cmd)
+    """One nvcc per source (run in parallel), then one link."""
+    out = _build.build_dir() / "lib.so"
+    objs = [out.with_suffix(".o")]
+    cc = _build.compile_command("nvcc", _build.sources()[0], objs[0])
+    link = _build.link_command("nvcc", objs, out)
+    for cmd in (cc, link):
+        assert "arch=compute_90a,code=sm_90a" in cmd
+    assert {"-c", "-O3", "-std=c++17"} <= set(cc)
+    assert "-shared" in link and str(out) in link
     assert _build.build_dir() == ROOT / "build" / "kernels"
-    assert [p.name for p in _build.sources()] == ["histogram.cu",
-                                                  "layout.cu", "pack.cu"]
+    assert [p.name for p in _build.sources()] == [
+        "chain.cu", "emit.cu", "histogram.cu", "layout.cu", "pack.cu",
+        "resolve.cu"]
     assert "build/" in (ROOT / ".gitignore").read_text().split()
 
 
