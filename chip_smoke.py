@@ -20,6 +20,12 @@ It builds the CUDA kernels from ``libhuffman_tpu_torch/csrc`` and then:
      chain, K4 emit) on the device plans of the encoded 8 MiB prefix of
      each corpus (``decode.build_device_plans``: 128 blocks), summed over
      the plans;
+  3b. K6 edge phase: K6 against its twin, exactly, on crafted entries
+     (``chain_edge_meta`` of tests/torch_port_util.py: dead entries on a
+     segment's first and last position, a length 31 on a segment's last
+     position, a length 40, a whole segment of 1-bit starts, uniform
+     random lengths) with NP = 3 L + 32 for the kernel's segment length
+     L = 2048 and B in {1, 3, 513};
   4. slice: ``encode(data, 65536)`` on 64 MiB of each corpus (the wire
      bytes of the first 128 blocks must equal the host-exact codec's, every
      encode kernel must have been launched, no block re-encoded on the
@@ -30,7 +36,9 @@ It builds the CUDA kernels from ``libhuffman_tpu_torch/csrc`` and then:
      runs and read just after; then holds K5, K6 and K4 against their
      twins, exactly, on every device plan of that decode run (up to 512
      blocks each); prints end-to-end and device-resident GB/s and
-     per-stage device breakdowns of both directions;
+     per-stage device breakdowns of both directions, and K6's time per
+     plan with, for the first plan, its three launches' device times
+     (torch.profiler);
   5. error phase: a truncated stream, a flipped tree bit and trailing
      garbage raise the same error class on the device route as on the
      host route;
@@ -72,9 +80,11 @@ def check(ok: bool, what: str) -> None:
         raise CheckFailed(what)
 
 
-def load_corpora():
+def load_test_util():
+    """tests/torch_port_util.py, loaded by path: the corpora and the K6
+    edge cases the CPU tests use."""
     spec = importlib.util.spec_from_file_location(
-        "bench_corpora", ROOT / "bench" / "corpora.py")
+        "torch_port_util", ROOT / "tests" / "torch_port_util.py")
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
@@ -212,6 +222,26 @@ def profile_decode(torch, dec, stream: bytes):
     return wall, spans, device
 
 
+def chain_phases(torch, kernels, meta, reps: int = 3):
+    """Device ms of each of K6's three launches (map, compose, write) per
+    ``kernels.chain(meta)`` call, from torch.profiler's kernel rows, as
+    text: "not measured" where the profiler shows none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    kernels.chain(meta)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            kernels.chain(meta)
+        torch.cuda.synchronize()
+    out = {}
+    for phase in ("chain_map", "chain_compose", "chain_write"):
+        us = sum(r.self_device_time_total for r in prof.key_averages()
+                 if phase in r.key)
+        out[phase] = f"{us / 1e3 / reps:.4f} ms" if us else "not measured"
+    return out
+
+
 def outcome(fn):
     """The name of the error class ``fn()`` raises, or "no error"."""
     try:
@@ -251,7 +281,8 @@ def main() -> int:
     from libhuffman_tpu_torch.ops import decode as tops
     from libhuffman_tpu_torch.ops import device as dev
 
-    corpora = load_corpora()
+    util = load_test_util()
+    corpora = util.corpora()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
@@ -383,6 +414,29 @@ def main() -> int:
     print("kernel phase: K4-K6 equal their twins exactly on both corpora",
           flush=True)
 
+    # ---- K6 edge phase: crafted chains against the twin, exact ---------
+    cases = 0
+    L = util.CHAIN_SEG
+    NP = 3 * L + 32
+    for edge in util.CHAIN_EDGES:
+        for Bc in (1, 3, 513):
+            meta = torch.from_numpy(util.chain_edge_meta(
+                edge, Bc, NP, L, seed=Bc).view("int16")).cuda()
+            want = kernels.chain_plain(meta)
+            # Poisoned buffers: the kernel must write every word.
+            poison = [torch.full_like(w, -1) for w in want]
+            del poison
+            got = kernels.chain(meta)
+            torch.cuda.synchronize()
+            err = max(max_abs_err(g, w) for g, w in zip(got, want))
+            errs["chain"] = max(errs["chain"], err)
+            check(err == 0, f"K6 edge {edge}: B={Bc} NP={NP}: max |err| "
+                  f"{err} against its twin")
+            cases += 1
+    print(f"K6 edge phase: {cases} cases ({len(util.CHAIN_EDGES)} edges, "
+          f"NP = 3 L + 32 for L = {L}, B in (1, 3, 513)) equal the twin "
+          f"exactly", flush=True)
+
     # ---- slice: the encode and decode paths end to end -----------------
     launches = {k: 0 for k in kernels.LAUNCHES}
     encode_kernels = ("histogram", "symbol_layout", "pack")
@@ -481,6 +535,12 @@ def main() -> int:
             stages, total = decode_stage_ms(torch, kernels, tops, p)
             meta = kernels.resolve(p["words"], p["tables"], p["ns"])
             t_twin = cuda_ms(torch, lambda: kernels.chain_plain(meta), 1, 0)
+            t_k6 = cuda_ms(torch, lambda: kernels.chain(meta), 5)
+            split = chain_phases(torch, kernels, meta) if i == 0 else {}
+            # The design's own traffic: the entries read twice, the planes
+            # written once.
+            design = (2 * 2 * meta.numel() + 4 * meta.shape[0]
+                      * (3 * (p["NP"] // 32) + p["NP"] // 8))
             del meta
             print(f"device-resident decode [{c}] plan {i}: B={p['blocks']}/"
                   f"{p['words'].shape[0]} NP={p['NP']} NS={p['ns']}: "
@@ -490,6 +550,12 @@ def main() -> int:
                   + ", ".join(f"{k} {v:.4f}" for k, v in stages.items())
                   + f" ms, sum {total:.3f} ms; chain twin {t_twin:.3f} ms "
                   f"({card})", flush=True)
+            print(f"K6 per plan [{c}] plan {i}: {t_k6:.4f} ms; design "
+                  f"bytes {design / HBM_BYTES_PER_MS:.4f} ms at 3.35 TB/s"
+                  + ("; launches " + ", ".join(f"{k} {v}" for k, v
+                                               in split.items())
+                     if split else "")
+                  + f" ({card})", flush=True)
         del plans, back, host
 
         # ---- error phase: same class on both routes --------------------

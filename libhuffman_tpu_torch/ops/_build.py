@@ -115,7 +115,9 @@ def library() -> ctypes.CDLL:
     lib.huff_pack.argtypes = [p, p, p, p, p, i, i, i, p]
     lib.huff_pack_smem_words.argtypes = []
     lib.huff_resolve.argtypes = [p, p, p, i, i, i, p]
-    lib.huff_chain.argtypes = [p, p, p, p, p, i, i, p]
+    lib.huff_chain.argtypes = [p, p, p, p, p, p, i, i, p]
+    lib.huff_chain_scratch_words.argtypes = [i, i]
+    lib.huff_chain_scratch_words.restype = ctypes.c_longlong
     lib.huff_emit.argtypes = [p, p, p, i, i, i, p]
     for fn in (lib.huff_histogram, lib.huff_layout, lib.huff_pack,
                lib.huff_pack_smem_words, lib.huff_resolve, lib.huff_chain,

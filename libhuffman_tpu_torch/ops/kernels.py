@@ -337,7 +337,9 @@ def chain(meta: torch.Tensor):
         (gw << 8) | aux in u32, then left-aligned by (32 - 8 c) & 31 for the
         group's count c (a dead start's aux byte, its fail offset, counts);
       gc4 (B, NP/32): byte k of word j = count of group 4 j + k;
-      gr32 (B, NP/32): starts through stripe j (a running total)."""
+      gr32 (B, NP/32): starts through stripe j (a running total).
+    One call counts one launch, though the kernel runs as three (map,
+    compose, write)."""
     if meta.dim() != 2:
         raise ValueError("meta must be (B, NP)")
     B, NP = meta.shape
@@ -347,17 +349,21 @@ def chain(meta: torch.Tensor):
         raise ValueError(f"NP must be a positive multiple of 32, got {NP}")
     if not _on_cuda(meta):
         return chain_plain(meta)
-    # Zero-filled: the kernel writes only the words its walk passes.
-    start = torch.zeros((B, NP // 32), dtype=torch.int32, device=dev)
-    gw = torch.zeros((B, NP // 8), dtype=torch.int32, device=dev)
-    gc4 = torch.zeros((B, NP // 32), dtype=torch.int32, device=dev)
+    # The kernel writes every word of the four planes.
+    start = torch.empty((B, NP // 32), dtype=torch.int32, device=dev)
+    gw = torch.empty((B, NP // 8), dtype=torch.int32, device=dev)
+    gc4 = torch.empty((B, NP // 32), dtype=torch.int32, device=dev)
     gr32 = torch.empty((B, NP // 32), dtype=torch.int32, device=dev)
     if B == 0:
         return start, gw, gc4, gr32
+    lib = _build.library()
+    # Each segment's exit map and composed entry (csrc/chain.cu).
+    scratch = torch.empty((lib.huff_chain_scratch_words(B, NP),),
+                          dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
-        err = _build.library().huff_chain(
+        err = lib.huff_chain(
             meta.data_ptr(), start.data_ptr(), gw.data_ptr(), gc4.data_ptr(),
-            gr32.data_ptr(), B, NP, _stream(dev))
+            gr32.data_ptr(), scratch.data_ptr(), B, NP, _stream(dev))
     _build.check(err, "chain")
     LAUNCHES["chain"] += 1
     return start, gw, gc4, gr32

@@ -7,8 +7,9 @@ port's natural, block-major order: K5 ``resolve_blocks`` (pair plane), K6
 ``chain_emit`` (position-major planes) and K4 ``concat_groups_ovf`` through
 ``_emit_from_chain``.  The port's ``decode_blocks`` is held against
 ``decode_v3.decode_blocks`` on device plans of small host-codec streams.
-Integer outputs, compared exactly.  The tests marked ``cuda`` hold each
-CUDA kernel against its twin on the card and skip without one.
+The chain twin is also held against ``chain_emit`` on the crafted edges of
+``torch_port_util.chain_edge_meta``.  Integer outputs, compared exactly.  The tests marked ``cuda`` hold each CUDA kernel against its twin
+on the card and skip without one.
 """
 
 from types import SimpleNamespace
@@ -22,7 +23,8 @@ from libhuffman_tpu_torch import native as tnative
 from libhuffman_tpu_torch.format import parse_block_header
 from libhuffman_tpu_torch.ops import decode as tops
 from libhuffman_tpu_torch.ops import hostref, kernels
-from torch_port_util import corpora, tensor, u32
+from torch_port_util import (CHAIN_EDGES, CHAIN_SEG, chain_edge_meta,
+                             corpora, tensor, u32)
 
 _CORPUS = corpora()
 
@@ -120,18 +122,59 @@ def _chain_input(maxl: int):
     return (syms << 6) | lens
 
 
-@pytest.mark.parametrize("maxl", [10, 25])
-def test_chain_twin_matches_pallas(jx, maxl):
-    m16 = _chain_input(maxl).astype(np.uint32)
+# (kind, NP, L): the two random inputs above (ids 10 and 25: their largest
+# length), then each crafted edge at NPs the Pallas kernel takes (992 fits
+# one of its steps, 4096 and 6144 are multiples of its 2048), placed at the
+# boundaries of L-position segments (NP = 3 L + 224 for 992; L = 2048 is
+# the chain kernel's own segment length).
+_CHAIN_GEOMETRY = ((992, 256), (4096, 1024), (6144, 2048))
+_CHAIN_CASES = [pytest.param(m, 1024, 1024, id=m) for m in ("10", "25")] + [
+    pytest.param(kind, NP, L, id=f"{kind}-{NP}")
+    for NP, L in _CHAIN_GEOMETRY for kind in CHAIN_EDGES]
+
+
+def _chain_case(kind: str, NP: int, L: int, B: int = 3) -> np.ndarray:
+    if kind in ("10", "25"):
+        return _chain_input(int(kind))
+    return chain_edge_meta(kind, B, NP, L, seed=NP + B)
+
+
+def _last_start(start: np.ndarray) -> np.ndarray:
+    """(B, NP/32) start words -> (B,) position of each row's last start."""
+    bits = np.unpackbits(start.view(np.uint8), axis=1, bitorder="little")
+    return bits.shape[1] - 1 - np.argmax(bits[:, ::-1], axis=1)
+
+
+@pytest.mark.parametrize("kind,NP,L", _CHAIN_CASES)
+def test_chain_twin_matches_pallas(jx, kind, NP, L):
+    m16 = _chain_case(kind, NP, L).astype(np.uint32)
     meta2 = m16[:, 0::2] | (m16[:, 1::2] << 16)  # JAX pair plane rows
     want = [np.asarray(x).T for x in jx.v3.chain_emit(jx.a(meta2.T))]
     got = kernels.chain(tensor(m16.astype(np.uint16).view(np.int16)))
     for name, w, g in zip(("start", "gw", "gc4", "gr32"), want, got):
         assert g.dtype == torch.int32
         np.testing.assert_array_equal(u32(g), w, err_msg=name)
+    # Each edge shapes the chain as crafted.
     start = u32(got[0])
-    assert start[1, 0] == 0b101          # ends at the length-40 start
-    assert start[2, 0] & 0xFF == 0xFF    # eight starts in one group
+    last = _last_start(start)
+    s = min(1, (NP - 1) // L) * L
+    e = min(NP, s + L)
+    if kind in ("10", "25"):
+        assert start[1, 0] == 0b101          # ends at the length-40 start
+        assert start[2, 0] & 0xFF == 0xFF    # eight starts in one group
+    elif kind == "random":
+        assert (last >= NP - 31).all()       # runs on to the end
+    elif kind == "dead-first":
+        assert (last == s).all()
+    elif kind == "dead-last":
+        assert (last == e - 1).all()
+    elif kind == "len40":
+        assert (last == (s + e) // 2).all()
+    elif kind == "len31-last":
+        for p in (L - 1, L + 30):            # enters segment 1 at offset 30
+            assert ((start[:, p // 32] >> (p % 32)) & 1).all()
+    elif kind == "ones":                     # every position of the segment
+        assert (start[:, s // 32 : e // 32] == 0xFFFFFFFF).all()
 
 
 # --------------------------------------------------------------------------
@@ -242,6 +285,24 @@ def test_cuda_decode_kernels_match_twins(cuda, family):
         on_cpu = tops.decode_blocks(tensor(p.words), tensor(p.tables), *args)
         for g, w in zip(on_card, on_cpu):
             assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", CHAIN_EDGES)
+def test_cuda_chain_edges_match_twin(cuda, kind):
+    """K6 on the card against its twin on the crafted edges, at the NPs of
+    the Pallas comparison and at NP = 3 L + 32 for the kernel's segment
+    length L (not a multiple of L), for B in {1, 3, 513}.  The output
+    buffers are poisoned first: the kernel must write every word."""
+    for NP, L in (*_CHAIN_GEOMETRY, (3 * CHAIN_SEG + 32, CHAIN_SEG)):
+        for B in (1, 3, 513):
+            meta = tensor(_chain_case(kind, NP, L, B).view(np.int16)).to(cuda)
+            want = kernels.chain_plain(meta)
+            poison = [torch.full_like(w, -1) for w in want]
+            del poison
+            got = kernels.chain(meta)
+            for g, w in zip(got, want):
+                assert torch.equal(g, w), (kind, NP, L, B)
 
 
 @pytest.mark.cuda

@@ -4,7 +4,9 @@ Both sides of a comparison compute from the same values: inputs are made
 with numpy from a fixed seed, handed to the JAX function as numpy arrays,
 and turned into the port's CPU tensors here.  32-bit words cross as their
 int32 bit pattern, the port's carrier for u32 (torch on the CPU has no
-shifts, compares or gathers for ``torch.uint32``).
+shifts, compares or gathers for ``torch.uint32``).  ``chain_edge_meta``
+crafts the chain kernel's edge cases for these tests and for
+``chip_smoke.py``, which loads this file by path.
 """
 
 from __future__ import annotations
@@ -75,3 +77,47 @@ def corpora():
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+CHAIN_SEG = 2048  # positions per segment of the chain kernel (csrc/chain.cu)
+CHAIN_EDGES = ("random", "dead-first", "dead-last", "len31-last", "len40",
+               "ones")
+
+
+def chain_edge_meta(kind: str, B: int, NP: int, L: int, seed: int = 0):
+    """(B, NP) uint16 K5 entries aux(13:6) | len(5:0) for one of the chain
+    edges of ``CHAIN_EDGES``, placed at the boundaries of L-position
+    segments: uniform random lengths 1-31 (random aux bytes), then, in
+    segment 1 (segment 0 when there is one), a dead entry on its first or
+    last position, a length 40, or lengths 1 through the whole segment;
+    or a length 31 on the last position of every segment.  A run of 31
+    1-bit starts before each such position makes every chain reach it (a
+    code is at most 31 bits)."""
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(1, 32, (B, NP)).astype(np.uint16)
+    aux = rng.integers(0, 256, (B, NP)).astype(np.uint16)
+    k = min(1, (NP - 1) // L)
+    s, e = k * L, min(NP, (k + 1) * L)
+
+    def reach(p: int) -> None:
+        lens[:, max(0, p - 31):p] = 1
+
+    if kind == "dead-first":
+        reach(s)
+        lens[:, s] = 0
+    elif kind == "dead-last":
+        reach(e - 1)
+        lens[:, e - 1] = 0
+    elif kind == "len31-last":
+        for p in [*range(L - 1, NP, L), NP - 1]:
+            reach(p)
+            lens[:, p] = 31
+    elif kind == "len40":
+        reach((s + e) // 2)
+        lens[:, (s + e) // 2] = 40
+    elif kind == "ones":
+        reach(s)
+        lens[:, s:e] = 1
+    elif kind != "random":
+        raise ValueError(f"unknown chain edge {kind!r}")
+    return (aux << 6) | lens
