@@ -15,17 +15,27 @@ It builds the CUDA kernels from ``libhuffman_tpu_torch/csrc`` and then:
      encode path's shapes (B = 128 blocks of N = 65536 bytes, W = 24576
      payload words, a ragged last row) for the first 8 MiB of the ``text``
      and ``mixed`` corpora (bench/corpora.py), exactly, and times both
-     (CUDA events, median);
+     (CUDA events, median; a kernel's time is its device time, taken
+     behind a spin kernel so that the host's launch work is not in it,
+     and is printed beside its time with that work, as an idle card
+     sees it);
   3. decode kernel phase: the same for each decode kernel (K5 resolve, K6
      chain, K4 emit) on the device plans of the encoded 8 MiB prefix of
      each corpus (``decode.build_device_plans``: 128 blocks), summed over
-     the plans;
-  3b. K6 edge phase: K6 against its twin, exactly, on crafted entries
-     (``chain_edge_meta`` of tests/torch_port_util.py: dead entries on a
-     segment's first and last position, a length 31 on a segment's last
-     position, a length 40, a whole segment of 1-bit starts, uniform
-     random lengths) with NP = 3 L + 32 for the kernel's segment length
-     L = 2048 and B in {1, 3, 513};
+     the plans, and a ``limits`` line: K5 at NS = 0 on the same words and
+     one ``fill_`` of K5's and of K4's output;
+  3b. edge phase: each decode kernel against its twin, exactly, on crafted
+     inputs from tests/torch_port_util.py, for B in {1, 3, 513}, with the
+     output buffers poisoned first: K6 on ``chain_edge_meta`` (dead
+     entries on a segment's first and last position, a length 31 on a
+     segment's last position, a length 40, a whole segment of 1-bit
+     starts, uniform random lengths) with NP = 3 L + 32 for the kernel's
+     segment length L = 2048; K5 at every stage count NS in 0..5 (tables
+     of ``fib_block(10 + 3 NS)``, words of ``run_words``) with W = 40 and
+     W = 3 S + 40 for its slice of S = 512 words; K4 on every kind of
+     ``emit_edge_inputs`` (n_cap 0, mid-cell, past NG; zero counts; a live
+     total past 4 OUTW; counts of 5-8) with NG = 2 T + 148 for its tile of
+     T = 2048 groups and OUTW = 3 NG / 4 and 4 NG;
   4. slice: ``encode(data, 65536)`` on 64 MiB of each corpus (the wire
      bytes of the first 128 blocks must equal the host-exact codec's, every
      encode kernel must have been launched, no block re-encoded on the
@@ -36,15 +46,15 @@ It builds the CUDA kernels from ``libhuffman_tpu_torch/csrc`` and then:
      runs and read just after; then holds K5, K6 and K4 against their
      twins, exactly, on every device plan of that decode run (up to 512
      blocks each); prints end-to-end and device-resident GB/s and
-     per-stage device breakdowns of both directions, and K6's time per
-     plan with, for the first plan, its three launches' device times
-     (torch.profiler);
+     per-stage device breakdowns of both directions, and K5's, K6's and
+     K4's times per plan beside their bytes bounds, with, for the first
+     plan, K6's three launches' device times (torch.profiler);
   5. error phase: a truncated stream, a flipped tree bit and trailing
      garbage raise the same error class on the device route as on the
      host route;
-  6. prints one JSON line describing the six kernels (times, launches,
-     the bound from the bytes each must move at 3.35 TB/s), then the
-     result line ``{"ok": true, "device": {...}}`` last.
+  6. prints one JSON line describing the six kernels (device times,
+     launches, the bound from the bytes each must move at 3.35 TB/s), then
+     the result line ``{"ok": true, "device": {...}}`` last.
 
 Any failed check exits non-zero before the result line; so does a machine
 without CUDA, and a directory holding this script without the package.
@@ -90,12 +100,20 @@ def load_test_util():
     return mod
 
 
-def cuda_ms(torch, fn, reps: int, warmup: int = 2) -> float:
-    """Median device time of ``fn()`` in ms over ``reps`` runs."""
+def cuda_ms(torch, fn, reps: int, warmup: int = 2, busy: bool = True
+            ) -> float:
+    """Median time of ``fn()`` in ms over ``reps`` runs, between CUDA events
+    around it.  With ``busy`` a spin kernel of about 0.5 ms runs first, so
+    the host's part of ``fn`` (Python, checks, allocation, the launch) is
+    done while the card is busy and the events hold the device time alone;
+    without it the events also hold the time an idle card waits for that
+    host work."""
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(reps):
+        if busy:
+            torch.cuda._sleep(1_000_000)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -148,7 +166,7 @@ def decode_stage_ms(torch, kernels, tops, p, reps: int = 3):
         ev[1].record()
         start, gw, gc4, gr32 = kernels.chain(meta)
         ev[2].record()
-        kernels.emit(gw, tops.live_mask(gc4, p["caps"]), p["OUTW"])
+        kernels.emit(gw, gc4, gr32, p["caps"], p["OUTW"])
         ev[3].record()
         tops.bookkeeping(meta, start, gc4, gr32, p["n_sym"], p["NP"])
         ev[4].record()
@@ -175,21 +193,42 @@ def device_plans(torch, dec, stream: bytes):
     return on_card, n_out
 
 
-def against_twins(torch, kernels, tops, p):
+def against_twins(torch, kernels, p):
     """K5, K6 and K4 on plan ``p`` and their twins on the same inputs:
-    (max |err| per kernel, meta, chain planes, live-masked gc4, out)."""
+    (max |err| per kernel, meta, chain planes, out)."""
     meta = kernels.resolve(p["words"], p["tables"], p["ns"])
     meta_p = kernels.resolve_plain(p["words"], p["tables"], p["ns"])
     planes = kernels.chain(meta)
     planes_p = kernels.chain_plain(meta)
-    gc4 = tops.live_mask(planes[2], p["caps"])
-    out = kernels.emit(planes[1], gc4, p["OUTW"])
-    out_p = kernels.emit_plain(planes[1], gc4, p["OUTW"])
+    e_in = (planes[1], planes[2], planes[3], p["caps"], p["OUTW"])
+    out = kernels.emit(*e_in)
+    out_p = kernels.emit_plain(*e_in)
     torch.cuda.synchronize()
     errs = {"resolve": max_abs_err(meta, meta_p),
             "chain": max(max_abs_err(a, b) for a, b in zip(planes, planes_p)),
             "emit": max_abs_err(out, out_p)}
-    return errs, meta, planes, gc4, out
+    return errs, meta, planes, out
+
+
+def decode_bound_bytes(torch, p, meta, planes, out):
+    """Bytes each decode kernel must move on plan ``p`` (each input read
+    once, each output written once): K5 its words, tables and entries; K6
+    the entry of each start and its four planes; K4 the counts of every
+    group and the words of the live groups (a start before n_cap), and
+    its output."""
+    Bp, NP = meta.shape
+    gc4 = planes[2]
+    starts = int(planes[3][:, -1].long().sum())
+    cnt = ((gc4.long()[:, :, None] >> torch.arange(0, 32, 8, device="cuda"))
+           & 255).reshape(Bp, -1)
+    g = torch.arange(cnt.shape[1], device="cuda")
+    live = int(((cnt > 0) & (g[None, :] < p["caps"].long()[:, None])).sum())
+    return {
+        "resolve": (p["words"].numel() * 4 + p["tables"].numel() * 4
+                    + Bp * NP * 2),
+        # The walk reads the entry of each start only.
+        "chain": 2 * starts + 3 * 4 * Bp * (NP // 32) + 4 * Bp * (NP // 8),
+        "emit": 4 * gc4.numel() + 4 * live + out.numel()}
 
 
 DECODE_SPANS = ("huff.decode.scan", "huff.decode.tables", "huff.decode.plans",
@@ -349,10 +388,11 @@ def main() -> int:
         bound_bytes["pack"].append(2 * 4 * B * N + 4 * B * W + B)
         for k, (kfn, pfn) in runs.items():
             ms[k].append(cuda_ms(torch, kfn, reps=15))
+            paced = cuda_ms(torch, kfn, reps=15, busy=False)
             plain_ms[k].append(cuda_ms(torch, pfn, reps=5))
-            print(f"kernel {k} [{c}]: {ms[k][-1]:.4f} ms, twin "
-                  f"{plain_ms[k][-1]:.4f} ms (B={B}, N={N}, W={W}; {card})",
-                  flush=True)
+            print(f"kernel {k} [{c}]: {ms[k][-1]:.4f} ms ({paced:.4f} ms "
+                  f"with its launch), twin {plain_ms[k][-1]:.4f} ms (B={B}, "
+                  f"N={N}, W={W}; {card})", flush=True)
         del blocks, nv, freqs, freqs_p, C, L, Cp, Lp, payload, payload_p
     for k in ("histogram", "symbol_layout", "pack"):
         check(errs[k] == 0,
@@ -366,47 +406,53 @@ def main() -> int:
         plans, n_out = device_plans(torch, dec, prefix)
         check(n_out >= KERNEL_BYTES, f"{c}: the plans of the {B}-block "
               f"prefix cover {n_out} bytes, not {KERNEL_BYTES}")
-        t = {k: [0.0, 0.0, 0] for k in ("resolve", "chain", "emit")}
+        t = {k: [0.0, 0.0, 0, 0.0] for k in ("resolve", "chain", "emit")}
         for p in plans:
             words, tables, ns = p["words"], p["tables"], p["ns"]
-            e, meta, planes, gc4, out = against_twins(torch, kernels, tops, p)
+            e, meta, planes, out = against_twins(torch, kernels, p)
             for k, v in e.items():
                 errs[k] = max(errs[k], v)
-            Bp, NP = meta.shape
-            starts = int(planes[3][:, -1].long().sum())
-            live = int((((gc4.long()[:, :, None]
-                          >> torch.arange(0, 32, 8, device="cuda")) & 255)
-                        > 0).sum())
-            moved = {
-                "resolve": words.numel() * 4 + tables.numel() * 4 + Bp * NP * 2,
-                # The walk reads the entry of each start only.
-                "chain": 2 * starts + 3 * 4 * Bp * (NP // 32)
-                + 4 * Bp * (NP // 8),
-                # Counts of every group, the words of the live ones.
-                "emit": 4 * gc4.numel() + 4 * live + out.numel()}
-            gw = planes[1]
+            moved = decode_bound_bytes(torch, p, meta, planes, out)
+            e_in = (planes[1], planes[2], planes[3], p["caps"], p["OUTW"])
             runs = {
                 "resolve": (lambda: kernels.resolve(words, tables, ns),
                             lambda: kernels.resolve_plain(words, tables, ns)),
                 "chain": (lambda: kernels.chain(meta),
                           lambda: kernels.chain_plain(meta)),
-                "emit": (lambda: kernels.emit(gw, gc4, p["OUTW"]),
-                         lambda: kernels.emit_plain(gw, gc4, p["OUTW"])),
+                "emit": (lambda: kernels.emit(*e_in),
+                         lambda: kernels.emit_plain(*e_in)),
             }
             for k, (kfn, pfn) in runs.items():
                 t[k][0] += cuda_ms(torch, kfn, reps=5)
                 t[k][1] += cuda_ms(torch, pfn, reps=3, warmup=1)
                 t[k][2] += moved[k]
-            del meta, planes, out, gw
+                t[k][3] += cuda_ms(torch, kfn, reps=5, busy=False)
+            del meta, planes, out, e_in
         shapes = ", ".join(f"B={p['blocks']}/{p['words'].shape[0]} "
                            f"NP={p['NP']} NS={p['ns']}" for p in plans)
-        for k, (kms, pms, nbytes) in t.items():
+        # What bounds K5 and K4 from below: K5 with no lookup past LUT10
+        # (NS = 0) on the same words, and one fill_ of each output.
+        lim = [0.0, 0.0, 0.0]
+        for p in plans:
+            meta = kernels.resolve(p["words"], p["tables"], 0)
+            out = torch.empty((meta.shape[0], 4 * p["OUTW"]),
+                              dtype=torch.uint8, device="cuda")
+            lim[0] += cuda_ms(torch, lambda: kernels.resolve(
+                p["words"], p["tables"], 0), reps=5)
+            lim[1] += cuda_ms(torch, lambda: meta.fill_(1), reps=5)
+            lim[2] += cuda_ms(torch, lambda: out.fill_(1), reps=5)
+            del meta, out
+        print(f"limits [{c}]: resolve at NS=0 {lim[0]:.4f} ms, fill_ of its "
+              f"output {lim[1]:.4f} ms; fill_ of emit's output {lim[2]:.4f} "
+              f"ms ({card})", flush=True)
+        for k, (kms, pms, nbytes, paced) in t.items():
             ms[k].append(kms)
             plain_ms[k].append(pms)
             bound_bytes[k].append(nbytes)
-            print(f"kernel {k} [{c}]: {kms:.4f} ms, twin {pms:.4f} ms, "
-                  f"bound {nbytes / HBM_BYTES_PER_MS:.4f} ms over "
-                  f"{len(plans)} plan(s) ({shapes}; {card})", flush=True)
+            print(f"kernel {k} [{c}]: {kms:.4f} ms ({paced:.4f} ms with its "
+                  f"launches), twin {pms:.4f} ms, bound "
+                  f"{nbytes / HBM_BYTES_PER_MS:.4f} ms over {len(plans)} "
+                  f"plan(s) ({shapes}; {card})", flush=True)
         del plans
     for k in ("resolve", "chain", "emit"):
         check(errs[k] == 0,
@@ -436,6 +482,50 @@ def main() -> int:
     print(f"K6 edge phase: {cases} cases ({len(util.CHAIN_EDGES)} edges, "
           f"NP = 3 L + 32 for L = {L}, B in (1, 3, 513)) equal the twin "
           f"exactly", flush=True)
+
+    # ---- K5 and K4 edge phase: crafted inputs against the twins, exact -
+    import numpy as np
+
+    cases = 0
+    span = util.RESOLVE_SPAN
+    for ns in range(kernels.MAX_NS + 1):
+        tab, got_ns = util.block_tables(util.fib_block(10 + 3 * ns))
+        check(got_ns == ns, f"fib_block({10 + 3 * ns}) gives NS {got_ns}")
+        for Wc in (40, 3 * span + 40):
+            for Bc in (1, 3, 513):
+                words = util.tensor(util.run_words(
+                    np.random.default_rng(Bc), Bc, Wc)).cuda()
+                tables = util.tensor(np.repeat(tab, Bc, axis=0)).cuda()
+                want = kernels.resolve_plain(words, tables, ns)
+                poison = torch.full_like(want, -1)
+                del poison
+                got = kernels.resolve(words, tables, ns)
+                torch.cuda.synchronize()
+                err = max_abs_err(got, want)
+                errs["resolve"] = max(errs["resolve"], err)
+                check(err == 0, f"K5 edge NS={ns} W={Wc} B={Bc}: max |err| "
+                      f"{err} against its twin")
+                cases += 1
+    NG = 2 * util.EMIT_TILE + 148
+    for edge in util.EMIT_EDGES:
+        for OUTW in (3 * NG // 4, 4 * NG):
+            for Bc in (1, 3, 513):
+                ins = [util.tensor(a).cuda()
+                       for a in util.emit_edge_inputs(edge, Bc, NG, seed=Bc)]
+                want = kernels.emit_plain(*ins, OUTW)
+                poison = torch.full_like(want, 0xA5)
+                del poison
+                got = kernels.emit(*ins, OUTW)
+                torch.cuda.synchronize()
+                err = max_abs_err(got, want)
+                errs["emit"] = max(errs["emit"], err)
+                check(err == 0, f"K4 edge {edge}: OUTW={OUTW} B={Bc}: max "
+                      f"|err| {err} against its twin")
+                cases += 1
+    print(f"K5/K4 edge phase: {cases} cases (K5: NS 0-5, W in (40, "
+          f"{3 * span + 40}); K4: {len(util.EMIT_EDGES)} kinds, NG = {NG}, "
+          f"OUTW in ({3 * NG // 4}, {4 * NG}); B in (1, 3, 513)) equal the "
+          f"twins exactly", flush=True)
 
     # ---- slice: the encode and decode paths end to end -----------------
     launches = {k: 0 for k in kernels.LAUNCHES}
@@ -468,7 +558,8 @@ def main() -> int:
 
         # Device-resident batch: encode_blocks whole, and stage by stage.
         blocks, nv = kernel_batch(torch, data, last_row=N)
-        t_all = cuda_ms(torch, lambda: dev.encode_blocks(blocks, nv, W), 5)
+        t_all = cuda_ms(torch, lambda: dev.encode_blocks(blocks, nv, W), 5,
+                        busy=False)
         stages, total, share = stage_ms(torch, dev, kernels, blocks, nv, W)
         print(f"device-resident encode [{c}]: encode_blocks {t_all:.3f} ms "
               f"per {B}x{N} batch = {KERNEL_BYTES / t_all / 1e6:.4f} GB/s; "
@@ -523,7 +614,14 @@ def main() -> int:
               f"{c}: {len(plans)} plans, but the decode run launched "
               f"{used['chain']}")
         for i, p in enumerate(plans):
-            e = against_twins(torch, kernels, tops, p)[0]
+            e, meta, planes, out = against_twins(torch, kernels, p)
+            bound = {k: v / HBM_BYTES_PER_MS for k, v in
+                     decode_bound_bytes(torch, p, meta, planes, out).items()}
+            e_in = (planes[1], planes[2], planes[3], p["caps"], p["OUTW"])
+            t_k4 = cuda_ms(torch, lambda: kernels.emit(*e_in), 5)
+            t_k5 = cuda_ms(torch, lambda: kernels.resolve(
+                p["words"], p["tables"], p["ns"]), 5)
+            del planes, out, e_in
             for k, v in e.items():
                 errs[k] = max(errs[k], v)
             check(not any(e.values()),
@@ -531,9 +629,9 @@ def main() -> int:
                   f"(max |err| {e})")
             args = (p["words"], p["tables"], p["n_sym"], p["caps"], p["NP"],
                     p["OUTW"], p["ns"])
-            t_all = cuda_ms(torch, lambda: tops.decode_blocks(*args), 3)
+            t_all = cuda_ms(torch, lambda: tops.decode_blocks(*args), 3,
+                            busy=False)
             stages, total = decode_stage_ms(torch, kernels, tops, p)
-            meta = kernels.resolve(p["words"], p["tables"], p["ns"])
             t_twin = cuda_ms(torch, lambda: kernels.chain_plain(meta), 1, 0)
             t_k6 = cuda_ms(torch, lambda: kernels.chain(meta), 5)
             split = chain_phases(torch, kernels, meta) if i == 0 else {}
@@ -556,6 +654,10 @@ def main() -> int:
                                                in split.items())
                      if split else "")
                   + f" ({card})", flush=True)
+            print(f"K5/K4 per plan [{c}] plan {i}: resolve {t_k5:.4f} ms, "
+                  f"bound {bound['resolve']:.4f} ms; emit {t_k4:.4f} ms, "
+                  f"bound {bound['emit']:.4f} ms (bytes at 3.35 TB/s; "
+                  f"{card})", flush=True)
         del plans, back, host
 
         # ---- error phase: same class on both routes --------------------

@@ -118,7 +118,7 @@ def library() -> ctypes.CDLL:
     lib.huff_chain.argtypes = [p, p, p, p, p, p, i, i, p]
     lib.huff_chain_scratch_words.argtypes = [i, i]
     lib.huff_chain_scratch_words.restype = ctypes.c_longlong
-    lib.huff_emit.argtypes = [p, p, p, i, i, i, p]
+    lib.huff_emit.argtypes = [p, p, p, p, p, i, i, i, p]
     for fn in (lib.huff_histogram, lib.huff_layout, lib.huff_pack,
                lib.huff_pack_smem_words, lib.huff_resolve, lib.huff_chain,
                lib.huff_emit):

@@ -5,10 +5,11 @@ For a plan of B blocks of NP bit positions each:
 
   K5 resolve   the codeword entry at every bit position (ops/kernels.resolve)
   K6 chain     the start set (the orbit of position 0 under p -> p + len(p))
-               with each 8-position group's symbols and counts
-  live mask    counts of groups past each block's staged payload are zeroed
-               (zero padding decodes as dense garbage starts)
-  K4 emit      the groups' symbol strings joined into the output bytes
+               with each 8-position group's symbols, counts and running
+               totals
+  K4 emit      the symbol strings of the groups before each block's staged
+               payload end joined into the output bytes (zero padding past
+               it decodes as dense garbage starts, which K4 leaves out)
   bookkeeping  the reference's end-of-block and corruption verdicts
                (src/decoder.c:52-91): end bit of the n_sym-th symbol,
                whether a dead position started within n_sym, its fail bit
@@ -28,18 +29,6 @@ from . import kernels
 def _pick(plane: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """plane[b, idx[b]] for every block (idx (B,) int64) -> (B,) int64."""
     return torch.gather(plane, 1, idx[:, None]).squeeze(1).long()
-
-
-def live_mask(gc4: torch.Tensor, n_cap: torch.Tensor) -> torch.Tensor:
-    """Zero the count bytes of groups at or past n_cap (byte k of cell c
-    counts group 4 c + k; decode_v3.py:540-549)."""
-    ci = torch.arange(gc4.shape[1], device=gc4.device)[None, :]
-    ncap = n_cap.long()[:, None]
-    full, rem = ncap // 4, ncap % 4
-    keep = torch.where(ci < full, kernels._M32,
-                       torch.where(ci == full,
-                                   (torch.ones_like(rem) << (8 * rem)) - 1, 0))
-    return kernels._as_i32(gc4.long() & keep)
 
 
 def _nth_start(start, gc4, gr32, target):
@@ -91,7 +80,7 @@ def decode_blocks(words: torch.Tensor, tables: torch.Tensor,
                          f"columns, got {words.shape[1]}")
     meta = kernels.resolve(words, tables, NS)
     start, gw, gc4, gr32 = kernels.chain(meta)
-    out = kernels.emit(gw, live_mask(gc4, n_cap), OUTW)
+    out = kernels.emit(gw, gc4, gr32, n_cap, OUTW)
     end_bit, corrupt, bad_bit = bookkeeping(meta, start, gc4, gr32, n_sym, NP)
     return out, end_bit, corrupt, bad_bit, torch.zeros_like(corrupt)
 

@@ -416,49 +416,60 @@ def chain_plain(meta: torch.Tensor):
 # K4 emit
 # --------------------------------------------------------------------------
 
-def emit(gw: torch.Tensor, gc4: torch.Tensor, OUTW: int) -> torch.Tensor:
-    """Decoded bytes: each group's string of count x 8 bits, joined.
+def emit(gw: torch.Tensor, gc4: torch.Tensor, gr32: torch.Tensor,
+         n_cap: torch.Tensor, OUTW: int) -> torch.Tensor:
+    """Decoded bytes: each live group's string of count x 8 bits, joined.
 
-    gw (B, NG) int32 left-aligned group words from :func:`chain`; gc4
-    (B, NG/4) int32 packed counts (byte k of word j = count of group
-    4 j + k, live-masked by the caller); OUTW words ->
-    out (B, 4 OUTW) uint8: the first 4 OUTW bytes of the concatenation,
-    zero-filled.  Byte i of a group's string is byte i of its word from
-    the top for i < 4, and zero past it.  Bytes past 4 OUTW are dropped."""
+    gw (B, NG) int32 left-aligned group words, gc4 (B, NG/4) int32 packed
+    counts (byte k of word j = count of group 4 j + k) and gr32 (B, NG/4)
+    int32 running totals of those counts, all three from :func:`chain`;
+    n_cap (B,) int32 live groups per block; OUTW words ->
+    out (B, 4 OUTW) uint8: the strings of groups 0 .. min(n_cap, NG) - 1
+    joined in group order, cut at 4 OUTW bytes, zero-filled past their
+    total.  Byte i of a group's string is byte i of its word from the top
+    for i < 4, and zero past it.  Groups at or past n_cap emit nothing;
+    that leaves the offsets of the groups before n_cap, which gr32 gives,
+    as they are."""
     if gw.dim() != 2:
         raise ValueError("gw must be (B, NG)")
     B, NG = gw.shape
     dev = gw.device
-    if NG % 4:
-        raise ValueError(f"NG must be a multiple of 4, got {NG}")
+    if NG == 0 or NG % 4:
+        raise ValueError(f"NG must be a positive multiple of 4, got {NG}")
     _check(gw, "gw", torch.int32, (B, NG), dev)
     _check(gc4, "gc4", torch.int32, (B, NG // 4), dev)
+    _check(gr32, "gr32", torch.int32, (B, NG // 4), dev)
+    _check(n_cap, "n_cap", torch.int32, (B,), dev)
     if OUTW <= 0:
         raise ValueError("OUTW must be positive")
     if not _on_cuda(gw):
-        return emit_plain(gw, gc4, OUTW)
+        return emit_plain(gw, gc4, gr32, n_cap, OUTW)
+    # The kernel writes every output byte.
     out = torch.empty((B, 4 * OUTW), dtype=torch.uint8, device=dev)
     if B == 0:
         return out
     with torch.cuda.device(dev):
         err = _build.library().huff_emit(
-            gw.data_ptr(), gc4.data_ptr(), out.data_ptr(), B, NG, OUTW,
-            _stream(dev))
+            gw.data_ptr(), gc4.data_ptr(), gr32.data_ptr(), n_cap.data_ptr(),
+            out.data_ptr(), B, NG, OUTW, _stream(dev))
     _build.check(err, "emit")
     LAUNCHES["emit"] += 1
     return out
 
 
-def emit_plain(gw: torch.Tensor, gc4: torch.Tensor, OUTW: int
-               ) -> torch.Tensor:
-    """Twin of :func:`emit`: a cumsum of the counts gives each group its
-    byte offset, and a scatter places its bytes (column 4 OUTW collects and
-    discards what falls past the budget)."""
+def emit_plain(gw: torch.Tensor, gc4: torch.Tensor, gr32: torch.Tensor,
+               n_cap: torch.Tensor, OUTW: int) -> torch.Tensor:
+    """Twin of :func:`emit`: the counts of groups at or past n_cap are
+    zeroed, a cumsum gives each group its byte offset (gr32, their running
+    total by the contract, is not read), and a scatter places its bytes
+    (column 4 OUTW collects and discards what falls past the budget)."""
     B, NG = gw.shape
     dev = gw.device
     cap = 4 * OUTW
     shifts = torch.arange(0, 32, 8, device=dev)
     cnt = ((gc4.long()[:, :, None] >> shifts) & 255).reshape(B, NG)
+    g = torch.arange(NG, device=dev)
+    cnt = torch.where(g[None, :] < n_cap.long()[:, None], cnt, 0)
     off = torch.cumsum(cnt, dim=1) - cnt
     i = torch.arange(4, device=dev)
     byte = (gw.long()[:, :, None] >> (24 - 8 * i)) & 255      # (B, NG, 4)

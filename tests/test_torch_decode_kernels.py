@@ -8,8 +8,11 @@ port's natural, block-major order: K5 ``resolve_blocks`` (pair plane), K6
 ``_emit_from_chain``.  The port's ``decode_blocks`` is held against
 ``decode_v3.decode_blocks`` on device plans of small host-codec streams.
 The chain twin is also held against ``chain_emit`` on the crafted edges of
-``torch_port_util.chain_edge_meta``.  Integer outputs, compared exactly.  The tests marked ``cuda`` hold each CUDA kernel against its twin
-on the card and skip without one.
+``torch_port_util.chain_edge_meta``, and the emit twin against
+``_emit_from_chain`` on the crafted counts of ``emit_edge_inputs``.
+Integer outputs, compared exactly.  The tests marked ``cuda`` hold each
+CUDA kernel against its twin on the card, on the plans of real streams and
+on crafted edges, and skip without one.
 """
 
 from types import SimpleNamespace
@@ -23,8 +26,10 @@ from libhuffman_tpu_torch import native as tnative
 from libhuffman_tpu_torch.format import parse_block_header
 from libhuffman_tpu_torch.ops import decode as tops
 from libhuffman_tpu_torch.ops import hostref, kernels
-from torch_port_util import (CHAIN_EDGES, CHAIN_SEG, chain_edge_meta,
-                             corpora, tensor, u32)
+from torch_port_util import (CHAIN_EDGES, CHAIN_SEG, EMIT_EDGES, EMIT_TILE,
+                             RESOLVE_SPAN, block_tables, chain_edge_meta,
+                             corpora, emit_edge_inputs, fib_block, run_words,
+                             tensor, u32)
 
 _CORPUS = corpora()
 
@@ -39,27 +44,6 @@ def jx():
     from libhuffman_tpu.ops import decode_v3
 
     return SimpleNamespace(a=jnp.asarray, v3=decode_v3, dec=jdec)
-
-
-def _tables(block: bytes):
-    """Native resolve tables of one encoded block: (tables (1, 13, 128)
-    uint32, NS)."""
-    tree = np.asarray(parse_block_header(memoryview(block), 0).tree, np.int16)
-    tab, ns, _mi, _ma = tnative.build_decode_tables(
-        tree, np.array([0], np.int64), np.array([len(tree)], np.int32))
-    assert int(ns[0]) >= 0
-    return tab, int(ns[0])
-
-
-def _fib_block() -> bytes:
-    """Fibonacci frequencies: codes deeper than 10 bits (NS >= 1) with few
-    live states at cut 10, the JAX package's narrow-stage construction."""
-    vals = []
-    a, b = 1, 1
-    for s in range(18):
-        vals += [s] * a
-        a, b = b, a + b
-    return hostref.encode_block(np.array(vals, np.uint8))
 
 
 def _natural_meta(meta) -> np.ndarray:
@@ -79,10 +63,10 @@ def _natural_meta(meta) -> np.ndarray:
 @pytest.mark.parametrize("tree,narrow", [("shallow", False), ("fib", False),
                                          ("fib", True)])
 def test_resolve_twin_matches_pallas(jx, tree, narrow):
-    shallow, ns0 = _tables(hostref.encode_block(
+    shallow, ns0 = block_tables(hostref.encode_block(
         np.frombuffer(b"abracadabra, a shallow tree " * 40, np.uint8)))
     assert ns0 == 0
-    fib, nsf = _tables(_fib_block())
+    fib, nsf = block_tables(fib_block())
     assert nsf >= 1
     if tree == "shallow":
         tables, NS = np.concatenate([shallow, shallow]), 0
@@ -195,32 +179,75 @@ def _stream(corrupt: bool = False):
 
 
 def _jax_chain_planes(jx, p):
-    """JAX resolve + chain of a plan: (gw_t (NG, B), gc4m (B, NG/4) live-
-    masked as decode_v3.decode_blocks masks it)."""
+    """JAX resolve + chain of a plan: (gw_t (NG, B), gc4 (B, NG/4) and
+    gr32 (B, NG/4), uint32 in the port's block-major order)."""
     B = p.words.shape[0]
     meta = jx.v3.resolve_blocks(jx.a(p.words), jx.a(p.tables), p.ns)
     e2 = np.asarray(meta).reshape(B, 16, p.NP // 32)
     meta_t = np.transpose(e2, (2, 1, 0)).reshape(p.NP // 2, B)
-    _s, gw_t, gc4_t, _g = jx.v3.chain_emit(jx.a(meta_t))
-    gc4 = u32(tops.live_mask(tensor(np.asarray(gc4_t).T), tensor(p.caps)))
-    return np.asarray(gw_t), gc4
+    _s, gw_t, gc4_t, gr32_t = jx.v3.chain_emit(jx.a(meta_t))
+    return np.asarray(gw_t), np.asarray(gc4_t).T, np.asarray(gr32_t).T
+
+
+def _masked(gc4: np.ndarray, n_cap) -> np.ndarray:
+    """The counts of groups at or past n_cap zeroed, as
+    decode_v3.decode_blocks masks them before emission (decode_v3.py:535-549):
+    (B, NG/4) uint32."""
+    g = np.arange(4 * gc4.shape[1]).reshape(1, -1, 4)
+    keep = g < np.asarray(n_cap, np.int64)[:, None, None]
+    mask = (np.where(keep, 255, 0) << np.arange(0, 32, 8)).sum(-1)
+    return (gc4.astype(np.int64) & mask).astype(np.uint32)
 
 
 def test_emit_twin_matches_pallas(jx):
+    """On every plan of the stream: the twin on the unmasked counts and
+    n_cap against ``_emit_from_chain`` on the masked counts."""
     stream, _ = _stream()
     plans, _ = jx.dec.build_device_plans(stream)
-    p = plans[0]
-    gw_t, gc4 = _jax_chain_planes(jx, p)
-    want, ovf = jx.v3._emit_from_chain(jx.a(gw_t), jx.a(gc4), p.OUTW, None)
-    got = kernels.emit(tensor(gw_t.T), tensor(gc4), p.OUTW)
-    assert not np.asarray(ovf).any()
-    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
-    # The TPU's capacity clamp (ECW) has no counterpart: compare on the
-    # blocks a tight clamp leaves unflagged.
-    want8, ovf8 = jx.v3._emit_from_chain(jx.a(gw_t), jx.a(gc4), p.OUTW, 8)
-    keep = ~np.asarray(ovf8)
-    assert keep.any() and not keep.all()
-    np.testing.assert_array_equal(got.numpy()[keep], np.asarray(want8)[keep])
+    assert plans
+    for i, p in enumerate(plans):
+        gw_t, gc4, gr32 = _jax_chain_planes(jx, p)
+        gc4m = _masked(gc4, p.caps)
+        want, ovf = jx.v3._emit_from_chain(jx.a(gw_t), jx.a(gc4m), p.OUTW,
+                                           None)
+        got = kernels.emit(tensor(gw_t.T), tensor(gc4), tensor(gr32),
+                           tensor(p.caps), p.OUTW)
+        assert not np.asarray(ovf).any()
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        # The TPU's capacity clamp (ECW) has no counterpart: compare on the
+        # blocks a tight clamp leaves unflagged.
+        want8, ovf8 = jx.v3._emit_from_chain(jx.a(gw_t), jx.a(gc4m),
+                                             p.OUTW, 8)
+        keep = ~np.asarray(ovf8)
+        assert i or (keep.any() and not keep.all())
+        np.testing.assert_array_equal(got.numpy()[keep],
+                                      np.asarray(want8)[keep])
+
+
+_EMIT_NG = 512  # the fewest groups the Pallas kernel takes (NG2 >= 512)
+
+
+@pytest.mark.parametrize("kind", [k for k in EMIT_EDGES if k != "eights"])
+def test_emit_twin_matches_pallas_on_crafted_counts(jx, kind):
+    """The twin against ``_emit_from_chain`` on crafted counts: n_cap 0, in
+    the middle of a 4-group cell, past NG; a row of zero counts; a live
+    total past 4 OUTW (the twin cuts it there).  Counts stay within 0-4,
+    as the main path gives them; "eights" is held on the card only."""
+    gw, gc4, gr32, n_cap = emit_edge_inputs(kind, 2, _EMIT_NG, seed=5)
+    OUTW = 3 * _EMIT_NG // 4
+    want, _ovf = jx.v3._emit_from_chain(jx.a(gw.T.copy()),
+                                        jx.a(_masked(gc4, n_cap)), OUTW, None)
+    got = kernels.emit(tensor(gw), tensor(gc4), tensor(gr32), tensor(n_cap),
+                       OUTW).numpy()
+    np.testing.assert_array_equal(got, np.asarray(want))
+    live = _masked(gc4, n_cap).view(np.uint8).reshape(2, -1).sum(1)
+    assert ((live > 4 * OUTW) == (kind == "truncate")).all()
+    if kind in ("cap0", "zero-counts"):
+        assert not got.any()
+    if kind == "cap-mid-cell":
+        assert (n_cap % 4 == 2).all() and (live > 0).all()
+    if kind == "cap-past-end":
+        assert (n_cap > _EMIT_NG).all()
 
 
 @pytest.mark.parametrize("corrupt", [False, True], ids=["clean", "corrupt"])
@@ -276,9 +303,9 @@ def test_cuda_decode_kernels_match_twins(cuda, family):
         planes = kernels.chain(meta)
         for g, w in zip(planes, kernels.chain_plain(meta)):
             assert torch.equal(g, w)
-        gc4 = tops.live_mask(planes[2], tensor(p.caps).to(cuda))
-        out = kernels.emit(planes[1], gc4, p.OUTW)
-        assert torch.equal(out, kernels.emit_plain(planes[1], gc4, p.OUTW))
+        caps = tensor(p.caps).to(cuda)
+        e_in = (planes[1], planes[2], planes[3], caps, p.OUTW)
+        assert torch.equal(kernels.emit(*e_in), kernels.emit_plain(*e_in))
         args = (tensor(p.n_sym), tensor(p.caps), p.NP, p.OUTW, p.ns)
         on_card = tops.decode_blocks(words, tables, *[
             a.to(cuda) if torch.is_tensor(a) else a for a in args])
@@ -306,10 +333,54 @@ def test_cuda_chain_edges_match_twin(cuda, kind):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kind", EMIT_EDGES)
+def test_cuda_emit_edges_match_twin(cuda, kind):
+    """K4 on the card against its twin on the crafted counts, with NG =
+    2 T + 148 for the kernel's tile of T groups (a multiple of neither T
+    nor 8), OUTW = 3 NG / 4 (rows not 16-byte aligned; "truncate" passes
+    it) and 4 NG (a long zero fill), for B in {1, 3, 513}.  The output is
+    poisoned first: the kernel must write every byte."""
+    NG = 2 * EMIT_TILE + 148
+    for OUTW in (3 * NG // 4, 4 * NG):
+        for B in (1, 3, 513):
+            ins = [tensor(a).to(cuda)
+                   for a in emit_edge_inputs(kind, B, NG, seed=B)]
+            want = kernels.emit_plain(*ins, OUTW)
+            poison = torch.full_like(want, 0xA5)
+            del poison
+            got = kernels.emit(*ins, OUTW)
+            assert torch.equal(got, want), (kind, OUTW, B)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ns", range(6))
+def test_cuda_resolve_edges_match_twin(cuda, ns):
+    """K5 on the card against its twin at every stage count: the tables of
+    a caterpillar tree of depth 10 + 3 NS, words whose long bit runs reach
+    its deepest codes, W below one of the kernel's slices of S words and
+    W = 3 S + 40 (not a multiple of it), for B in {1, 3, 513}.  The output
+    is poisoned first: the kernel must write every entry."""
+    tab, got_ns = block_tables(fib_block(10 + 3 * ns))
+    assert got_ns == ns
+    deepest = 0
+    for W in (40, 3 * RESOLVE_SPAN + 40):
+        for B in (1, 3, 513):
+            words = tensor(run_words(np.random.default_rng(B), B, W)).to(cuda)
+            tables = tensor(np.repeat(tab, B, axis=0)).to(cuda)
+            want = kernels.resolve_plain(words, tables, ns)
+            deepest = max(deepest, int((want.long() & 63).max()))
+            poison = torch.full_like(want, -1)
+            del poison
+            got = kernels.resolve(words, tables, ns)
+            assert torch.equal(got, want), (ns, W, B)
+    assert deepest == 10 + 3 * ns  # the last stage was taken
+
+
+@pytest.mark.cuda
 def test_cuda_resolve_takes_more_blocks_than_a_grid_row(cuda):
     """A plan of 512-byte payloads may hold 2^28 / 4096 = 65536 blocks,
     past the 65535 of a CUDA grid's y dimension."""
-    tables, _ns = _tables(hostref.encode_block(
+    tables, _ns = block_tables(hostref.encode_block(
         np.frombuffer(b"abracadabra, a shallow tree " * 40, np.uint8)))
     B = 65536 + 7
     g = torch.Generator(device=cuda).manual_seed(1)

@@ -96,7 +96,8 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
     with pytest.raises(ValueError):
         kernels.chain(torch.zeros((2, 48), dtype=torch.int16))
     with pytest.raises(ValueError):
-        kernels.emit(C, C[:, :15].contiguous(), 16)
+        kernels.emit(C, C[:, :15].contiguous(), C[:, :16].contiguous(), nv,
+                     16)
 
 
 def test_build_targets_sm90a_into_the_build_dir():

@@ -4,9 +4,10 @@ Both sides of a comparison compute from the same values: inputs are made
 with numpy from a fixed seed, handed to the JAX function as numpy arrays,
 and turned into the port's CPU tensors here.  32-bit words cross as their
 int32 bit pattern, the port's carrier for u32 (torch on the CPU has no
-shifts, compares or gathers for ``torch.uint32``).  ``chain_edge_meta``
-crafts the chain kernel's edge cases for these tests and for
-``chip_smoke.py``, which loads this file by path.
+shifts, compares or gathers for ``torch.uint32``).  ``chain_edge_meta``,
+``emit_edge_inputs`` and ``run_words`` with the tables of ``fib_block``
+craft the edge cases of the chain, emit and resolve kernels for these tests
+and for ``chip_smoke.py``, which loads this file by path.
 """
 
 from __future__ import annotations
@@ -121,3 +122,86 @@ def chain_edge_meta(kind: str, B: int, NP: int, L: int, seed: int = 0):
     elif kind != "random":
         raise ValueError(f"unknown chain edge {kind!r}")
     return (aux << 6) | lens
+
+
+EMIT_TILE = 2048    # groups per CTA of the emit kernel (csrc/emit.cu)
+RESOLVE_SPAN = 512  # fewest words per CTA of the resolve kernel (csrc/resolve.cu)
+EMIT_EDGES = ("random", "cap0", "cap-mid-cell", "cap-past-end",
+              "zero-counts", "truncate", "eights")
+
+
+def emit_edge_inputs(kind: str, B: int, NG: int, seed: int = 0):
+    """The emit kernel's inputs for one of ``EMIT_EDGES``, shaped as the
+    chain kernel gives them: (gw (B, NG) uint32, gc4 and gr32 (B, NG/4)
+    uint32, n_cap (B,) int32).  Group counts are 0-4 with their aux bytes
+    left-aligned in gw and zeros below (5-8 and four aux bytes for
+    "eights", the 1-bit starts a crafted stream gives); gr32 holds the
+    running totals of the unmasked counts.  n_cap is random in [0, NG]
+    ("random", "eights"), 0 ("cap0"), 2 past a count cell just past the
+    first tile or mid-row ("cap-mid-cell"), NG + 5 ("cap-past-end"), or NG
+    ("zero-counts": every count 0; "truncate": counts 3-4, whose total of
+    ~3.5 NG bytes passes the 3 NG of OUTW = 3 NG / 4, which the ~2 NG of
+    random rows stay under)."""
+    rng = np.random.default_rng(seed)
+    lo, hi = {"truncate": (3, 4), "eights": (5, 8),
+              "zero-counts": (0, 0)}.get(kind, (0, 4))
+    if kind not in EMIT_EDGES:
+        raise ValueError(f"unknown emit edge {kind!r}")
+    cnt = rng.integers(lo, hi + 1, (B, NG))
+    aux = rng.integers(0, 256, (B, NG, 4), dtype=np.uint64)
+    i = np.arange(4, dtype=np.uint64)
+    kept = np.minimum(cnt, 4)[..., None]
+    gw = np.where(i < kept, aux << (24 - 8 * i), 0).sum(-1).astype(np.uint32)
+    cells = cnt.reshape(B, NG // 4, 4)
+    gc4 = (cells << np.arange(0, 32, 8)).sum(-1).astype(np.uint32)
+    gr32 = np.cumsum(cells.sum(-1), axis=1).astype(np.uint32)
+    if kind in ("random", "eights"):
+        n_cap = rng.integers(0, NG + 1, B)
+    elif kind == "cap0":
+        n_cap = np.zeros(B)
+    elif kind == "cap-mid-cell":
+        n_cap = np.full(B, EMIT_TILE + 14 if NG > EMIT_TILE + 16
+                        else (NG // 8) * 4 + 2)
+    elif kind == "cap-past-end":
+        n_cap = np.full(B, NG + 5)
+    else:
+        n_cap = np.full(B, NG)
+    return gw, gc4, gr32, n_cap.astype(np.int32)
+
+
+def fib_block(n: int = 18) -> bytes:
+    """One host-codec block of Fibonacci frequencies over n symbols: a
+    caterpillar tree of depth n (the root wrap included), so n = 10 + 3 k
+    needs k lookup stages past LUT10 (k in 0..5) and has codes of the last
+    stage's full depth, with few live states at every cut."""
+    from libhuffman_tpu_torch.ops import hostref
+
+    vals = []
+    a, b = 1, 1
+    for s in range(n):
+        vals += [s] * a
+        a, b = b, a + b
+    return hostref.encode_block(np.array(vals, np.uint8))
+
+
+def block_tables(block: bytes):
+    """Native resolve tables of one encoded block: (tables (1, 13, 128)
+    uint32, NS); NS < 0 where the device does not take the tree."""
+    from libhuffman_tpu_torch import native
+    from libhuffman_tpu_torch.format import parse_block_header
+
+    tree = np.asarray(parse_block_header(memoryview(block), 0).tree, np.int16)
+    tab, ns, _mi, _ma = native.build_decode_tables(
+        tree, np.array([0], np.int64), np.array([len(tree)], np.int32))
+    return tab, int(ns[0])
+
+
+def run_words(rng: np.random.Generator, B: int, W: int) -> np.ndarray:
+    """(B, W + 128) uint32 payload words, zero-padded past W, whose rows in
+    turn hold uniform bits, 97% ones and 3% ones: the long runs take
+    windows down a caterpillar tree's deepest codes."""
+    p = np.array([0.5, 0.97, 0.03])[np.arange(B) % 3][:, None, None]
+    bits = rng.random((B, W, 32)) < p
+    words = np.zeros((B, W + 128), np.uint32)
+    words[:, :W] = np.packbits(bits, axis=-1).view(">u4")[..., 0]
+    return words
