@@ -14,28 +14,43 @@ It builds the CUDA kernels from ``libhuffman_tpu_torch/csrc`` and then:
      layout, K3 pack) against its plain-torch twin on the card at the
      encode path's shapes (B = 128 blocks of N = 65536 bytes, W = 24576
      payload words, a ragged last row) for the first 8 MiB of the ``text``
-     and ``mixed`` corpora (bench/corpora.py), exactly, and times both
-     (CUDA events, median; a kernel's time is its device time, taken
-     behind a spin kernel so that the host's launch work is not in it,
-     and is printed beside its time with that work, as an idle card
-     sees it);
+     and ``mixed`` corpora (bench/corpora.py), exactly, and times the
+     kernel, its twin and, for K1 and K2, the one PyTorch call that
+     computes the same function (CUDA events, median; a kernel's time is
+     its device time, taken behind a spin kernel so that the host's
+     launch work is not in it, and is printed beside its time with that
+     work, as an idle card sees it); then a ``limits [encode]`` line on
+     the text batch: a ``torch.sum`` that reads the blocks once, sums that
+     read C and L once (each also on a float32 view of the same bytes),
+     and a ``fill_`` of K3's payload;
+  2b. encode edge phase: K1 and K3 against their twins, exactly, on
+     crafted inputs from tests/torch_port_util.py, with the output
+     buffers poisoned first: K1 on every kind of ``hist_edge_inputs``
+     (n_valid 0, 1 and 17; random bytes past n_valid; one byte value; all
+     256 values) at N = 3000, N = 65536 (also as rows at an odd byte
+     offset) and N = 2^21; K3 on every kind of ``pack_edge_inputs`` (all
+     lengths 0 or 32; 32-bit codes at every segment and tile boundary; a
+     total of exactly 32 W and one bit more; segments that end inside one
+     word) at N = 3001, 4096, 65536, 70000, 131072 and 2^21 with the
+     encode path's W for each (1536 to 786432 words); B in {1, 3, 513},
+     and {1, 3} at N = 2^21;
   3. decode kernel phase: the same for each decode kernel (K5 resolve, K6
      chain, K4 emit) on the device plans of the encoded 8 MiB prefix of
      each corpus (``decode.build_device_plans``: 128 blocks), summed over
      the plans, and a ``limits`` line: K5 at NS = 0 on the same words and
      one ``fill_`` of K5's and of K4's output;
-  3b. edge phase: each decode kernel against its twin, exactly, on crafted
-     inputs from tests/torch_port_util.py, for B in {1, 3, 513}, with the
-     output buffers poisoned first: K6 on ``chain_edge_meta`` (dead
+  3b. decode edge phase: each decode kernel against its twin, exactly, on
+     crafted inputs from tests/torch_port_util.py, for B in {1, 3, 513},
+     with the output buffers poisoned first: K6 on ``chain_edge_meta`` (dead
      entries on a segment's first and last position, a length 31 on a
-     segment's last position, a length 40, a whole segment of 1-bit
-     starts, uniform random lengths) with NP = 3 L + 32 for the kernel's
-     segment length L = 2048; K5 at every stage count NS in 0..5 (tables
-     of ``fib_block(10 + 3 NS)``, words of ``run_words``) with W = 40 and
-     W = 3 S + 40 for its slice of S = 512 words; K4 on every kind of
+     segment's last position, a length 40, a whole segment of 1-bit starts,
+     uniform random lengths) with NP = 3 L + 32 for the kernel's segment
+     length L = 2048; K5 at every stage count NS in 0..5 (tables of
+     ``fib_block(10 + 3 NS)``, words of ``run_words``) with W = 40 and W = 3
+     S + 40 for its slice of S = 512 words; K4 on every kind of
      ``emit_edge_inputs`` (n_cap 0, mid-cell, past NG; zero counts; a live
-     total past 4 OUTW; counts of 5-8) with NG = 2 T + 148 for its tile of
-     T = 2048 groups and OUTW = 3 NG / 4 and 4 NG;
+     total past 4 OUTW; counts of 5-8) with NG = 2 T + 148 for its tile of T
+     = 2048 groups and OUTW = 3 NG / 4 and 4 NG;
   4. slice: ``encode(data, 65536)`` on 64 MiB of each corpus (the wire
      bytes of the first 128 blocks must equal the host-exact codec's, every
      encode kernel must have been launched, no block re-encoded on the
@@ -52,9 +67,11 @@ It builds the CUDA kernels from ``libhuffman_tpu_torch/csrc`` and then:
   5. error phase: a truncated stream, a flipped tree bit and trailing
      garbage raise the same error class on the device route as on the
      host route;
-  6. prints one JSON line describing the six kernels (device times,
-     launches, the bound from the bytes each must move at 3.35 TB/s), then
-     the result line ``{"ok": true, "device": {...}}`` last.
+  6. prints one JSON line describing the six kernels (launches on the
+     slice, max |err| over every phase, device time and the twin's time
+     per 8 MiB, median over the two corpora, the bound from the bytes each
+     must move at 3.35 TB/s, and the PyTorch call's time for K1 and K2),
+     then the result line ``{"ok": true, "device": {...}}`` last.
 
 Any failed check exits non-zero before the result line; so does a machine
 without CUDA, and a directory holding this script without the package.
@@ -349,6 +366,9 @@ def main() -> int:
     ms = {k: [] for k in errs}
     plain_ms = {k: [] for k in errs}
     bound_bytes = {k: [] for k in errs}
+    # The PyTorch call computing a kernel's function, where there is one;
+    # timed as a yardstick only, the port never calls it.
+    library_ms = {"histogram": [], "symbol_layout": []}
     for c in CORPORA:
         blocks, nv = kernel_batch(torch, streams[c])
         freqs = kernels.histogram(blocks, nv)
@@ -386,19 +406,112 @@ def main() -> int:
         bound_bytes["symbol_layout"].append(
             B * N + 2 * 4 * B * 256 + 4 * B + 2 * 4 * B * N)
         bound_bytes["pack"].append(2 * 4 * B * N + 4 * B * W + B)
+        # Their inputs are built outside the timed window: K1's row-offset
+        # index (the twin's), K2's table codes | lens << 32 and int64 index
+        # (the gather leaves out K2's n_valid mask).
+        pos = torch.arange(N, device="cuda")
+        idx = torch.where(
+            pos[None, :] < nv[:, None].long(),
+            blocks.long() + torch.arange(B, device="cuda")[:, None] * 256,
+            B * 256).flatten()
+        table = (codes.long() & 0xFFFFFFFF) | (lens.long() << 32)
+        gidx = blocks.long()
+        library = {
+            "histogram": lambda: torch.bincount(idx, minlength=B * 256 + 1),
+            "symbol_layout": lambda: torch.gather(table, 1, gidx)}
         for k, (kfn, pfn) in runs.items():
             ms[k].append(cuda_ms(torch, kfn, reps=15))
             paced = cuda_ms(torch, kfn, reps=15, busy=False)
             plain_ms[k].append(cuda_ms(torch, pfn, reps=5))
+            lib = ""
+            if k in library:
+                library_ms[k].append(cuda_ms(torch, library[k], reps=15))
+                lib = f", library {library_ms[k][-1]:.4f} ms"
             print(f"kernel {k} [{c}]: {ms[k][-1]:.4f} ms ({paced:.4f} ms "
-                  f"with its launch), twin {plain_ms[k][-1]:.4f} ms (B={B}, "
-                  f"N={N}, W={W}; {card})", flush=True)
+                  f"with its launch), twin {plain_ms[k][-1]:.4f} ms{lib}, "
+                  f"bound {bound_bytes[k][-1] / HBM_BYTES_PER_MS:.4f} ms "
+                  f"(B={B}, N={N}, W={W}; {card})", flush=True)
+        if c == "text":
+            # What a kernel moving K1's or K3's bytes can reach at this
+            # size: one read of the blocks, one of C and L (as integers, and
+            # viewed as float32, whose reduction is faster), one write of
+            # the payload.
+            f32 = (blocks.view(torch.float32), C.view(torch.float32),
+                   L.view(torch.float32))
+            lim = [cuda_ms(torch, lambda: blocks.sum(), reps=15),
+                   cuda_ms(torch, lambda: f32[0].sum(), reps=15),
+                   cuda_ms(torch, lambda: (C.sum(), L.sum()), reps=15),
+                   cuda_ms(torch, lambda: (f32[1].sum(), f32[2].sum()),
+                           reps=15),
+                   cuda_ms(torch, lambda: payload.fill_(1), reps=15)]
+            print(f"limits [encode]: sum of blocks {lim[0]:.4f} ms "
+                  f"(as float32 {lim[1]:.4f} ms; {B * N} B), sums of C and "
+                  f"L {lim[2]:.4f} ms (as float32 {lim[3]:.4f} ms; "
+                  f"{8 * B * N} B), fill_ of pack's payload {lim[4]:.4f} ms "
+                  f"({4 * B * W} B) ({card})", flush=True)
+            del f32
         del blocks, nv, freqs, freqs_p, C, L, Cp, Lp, payload, payload_p
+        del idx, table, gidx, library
     for k in ("histogram", "symbol_layout", "pack"):
         check(errs[k] == 0,
               f"kernel {k} disagrees with its twin (max |err| {errs[k]})")
     print("kernel phase: K1-K3 equal their twins exactly on both corpora",
           flush=True)
+
+    # ---- K1 and K3 edge phase: crafted inputs against the twins, exact -
+    t0 = time.perf_counter()
+    cases = 0
+    for edge in util.HIST_EDGES:
+        for Nc, offset in ((3000, 0), (N, 0), (N, 1), (1 << 21, 0)):
+            sizes = (1, 3) if Nc > 4 * N else (1, 3, 513)
+            x, nvc = util.hist_edge_inputs(edge, sizes[-1], Nc, seed=Nc)
+            for Bc in sizes:
+                # Rows at ``offset`` bytes into a buffer: an odd offset
+                # takes the kernel's unaligned path.
+                flat = torch.empty(offset + Bc * Nc, dtype=torch.uint8,
+                                   device="cuda")
+                flat[offset:] = util.tensor(x[:Bc].reshape(-1)).cuda()
+                blocks = flat[offset:].view(Bc, Nc)
+                nv = util.tensor(nvc[:Bc]).cuda()
+                want = kernels.histogram_plain(blocks, nv)
+                poison = torch.full_like(want, -1)
+                del poison
+                got = kernels.histogram(blocks, nv)
+                torch.cuda.synchronize()
+                err = max_abs_err(got, want)
+                errs["histogram"] = max(errs["histogram"], err)
+                check(err == 0, f"K1 edge {edge}: N={Nc} offset={offset} "
+                      f"B={Bc}: max |err| {err} against its twin")
+                cases += 1
+                del flat, blocks, nv, want, got
+    n_hist = cases
+    for edge in util.PACK_EDGES:
+        for Nc in (3001, 4096, N, 70000, 2 * N, 1 << 21):
+            Wc = enc._pack_params(Nc)
+            sizes = (1, 3) if Nc > 4 * N else (1, 3, 513)
+            Cn, Ln = util.pack_edge_inputs(edge, sizes[-1], Nc, Wc, seed=Nc)
+            for Bc in sizes:
+                Cc = util.tensor(Cn[:Bc]).cuda()
+                Lc = util.tensor(Ln[:Bc]).cuda()
+                want = kernels.pack_plain(Cc, Lc, Wc)
+                poison = torch.full_like(want[0], 0xA5)
+                del poison
+                got = kernels.pack(Cc, Lc, Wc)
+                torch.cuda.synchronize()
+                err = max(max_abs_err(g, w) for g, w in zip(got, want))
+                errs["pack"] = max(errs["pack"], err)
+                check(err == 0, f"K3 edge {edge}: N={Nc} W={Wc} B={Bc}: max "
+                      f"|err| {err} against its twin")
+                cases += 1
+                del Cc, Lc, want, got
+            del Cn, Ln
+    print(f"K1/K3 edge phase: {cases} cases (K1: {n_hist}, "
+          f"{len(util.HIST_EDGES)} kinds, N in (3000, {N}, {N} at an odd "
+          f"offset, {1 << 21}); K3: {cases - n_hist}, "
+          f"{len(util.PACK_EDGES)} kinds, N in (3001, 4096, {N}, 70000, "
+          f"{2 * N}, {1 << 21}) with W = _pack_params(N); B in (1, 3, 513), "
+          f"(1, 3) at N = {1 << 21}) equal the twins exactly "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
 
     # ---- decode kernel phase: K5, K6, K4 against their twins, exact ----
     for c in CORPORA:
@@ -701,8 +814,10 @@ def main() -> int:
          "plain_ms": statistics.median(plain_ms[k]),
          "bound_ms": statistics.median(bound_bytes[k]) / HBM_BYTES_PER_MS,
          "bound_by": "bytes",
-         # No single PyTorch call computes any of these functions.
-         "library_ms": None}
+         # K1: torch.bincount, K2: torch.gather (see the kernel phase); no
+         # single PyTorch call computes the other four.
+         "library_ms": (statistics.median(library_ms[k])
+                        if k in library_ms else None)}
         for k in sources]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

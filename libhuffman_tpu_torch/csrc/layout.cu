@@ -15,8 +15,10 @@
 // shared memory once and then serves kChunk bytes of that block, so the
 // table load is amortized over 8 KiB of input; one thread per byte keeps
 // loads and stores coalesced.  The (C, L) planes exist only to be read back
-// by the packer (K3); fusing the lookup into K3 removes them and is left to
-// a later change.
+// by the packer (K3), which reads L twice (its segment sums, then the pack)
+// and C once; fusing the lookup into K3 would have it read the bytes twice
+// and the tables in place of those 8 bytes per input byte, and is left to a
+// later change.
 
 #include <cuda_runtime.h>
 #include <stdint.h>

@@ -112,16 +112,14 @@ def library() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.huff_histogram.argtypes = [p, p, p, i, i, p]
     lib.huff_layout.argtypes = [p, p, p, p, p, p, i, i, p]
-    lib.huff_pack.argtypes = [p, p, p, p, p, i, i, i, p]
-    lib.huff_pack_smem_words.argtypes = []
+    lib.huff_pack.argtypes = [p, p, p, p, i, i, i, p]
     lib.huff_resolve.argtypes = [p, p, p, i, i, i, p]
     lib.huff_chain.argtypes = [p, p, p, p, p, p, i, i, p]
     lib.huff_chain_scratch_words.argtypes = [i, i]
     lib.huff_chain_scratch_words.restype = ctypes.c_longlong
     lib.huff_emit.argtypes = [p, p, p, p, p, i, i, i, p]
     for fn in (lib.huff_histogram, lib.huff_layout, lib.huff_pack,
-               lib.huff_pack_smem_words, lib.huff_resolve, lib.huff_chain,
-               lib.huff_emit):
+               lib.huff_resolve, lib.huff_chain, lib.huff_emit):
         fn.restype = ctypes.c_int
     lib.huff_error_string.argtypes = [i]
     lib.huff_error_string.restype = ctypes.c_char_p

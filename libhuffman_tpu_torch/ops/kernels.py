@@ -175,7 +175,8 @@ def pack(C: torch.Tensor, L: torch.Tensor, W: int):
     length), L (B, N) int32 lengths in [0, 32], W words ->
     (payload (B, 4W) uint8: the first W big-endian words of the
     concatenation, zero-filled; overflow (B,) bool: total bits > 32 W,
-    whose content past word W is dropped)."""
+    whose content past word W is dropped).  N < 2^26.  The kernel writes
+    every output byte."""
     if C.dim() != 2:
         raise ValueError("C must be (B, N)")
     B, N = C.shape
@@ -190,15 +191,10 @@ def pack(C: torch.Tensor, L: torch.Tensor, W: int):
     ovf = torch.empty((B,), dtype=torch.bool, device=dev)
     if B == 0:
         return payload, ovf
-    lib = _build.library()
-    scratch = None
-    if W > lib.huff_pack_smem_words():
-        scratch = torch.zeros((B, W), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
-        err = lib.huff_pack(
+        err = _build.library().huff_pack(
             C.data_ptr(), L.data_ptr(), payload.data_ptr(), ovf.data_ptr(),
-            None if scratch is None else scratch.data_ptr(), B, N, W,
-            _stream(dev))
+            B, N, W, _stream(dev))
     _build.check(err, "pack")
     LAUNCHES["pack"] += 1
     return payload, ovf

@@ -17,7 +17,9 @@ import torch
 
 from libhuffman_tpu_torch.ops import device as tdev
 from libhuffman_tpu_torch.ops import hostref, kernels
-from torch_port_util import batch, be_bytes, left_align, tensor, u32
+from torch_port_util import (HIST_EDGES, PACK_EDGES, batch, be_bytes,
+                             hist_edge_inputs, left_align, pack_edge_inputs,
+                             tensor, u32)
 
 
 @pytest.fixture(scope="module")
@@ -49,6 +51,20 @@ def test_histogram_twin_matches_pallas(jx, N):
     rng = np.random.default_rng(N)
     x, nv = batch(rng, 4, N, [N, N // 2 + 3, 0, 1])
     want = np.asarray(jx.dev.histogram_pallas(jx.a(x), jx.a(nv)))
+    got = kernels.histogram(tensor(x), tensor(nv)).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("kind", HIST_EDGES)
+def test_histogram_twin_matches_pallas_on_edges(jx, kind):
+    """Crafted rows at the Pallas kernel's shape (N % 4096 == 0).  The Pallas
+    kernel needs zeros past n_valid; the twin gets random padding, which
+    it must not count."""
+    N = 4096
+    x, nv = hist_edge_inputs(kind, 4, N, seed=3)
+    zeroed = np.where(np.arange(N)[None, :] < nv[:, None], x, 0).astype(
+        np.uint8)
+    want = np.asarray(jx.dev.histogram_pallas(jx.a(zeroed), jx.a(nv)))
     got = kernels.histogram(tensor(x), tensor(nv)).numpy()
     np.testing.assert_array_equal(got, want)
 
@@ -112,6 +128,20 @@ def test_pack_twin_matches_concat_kernel_on_long_codes(jx):
     total = L.astype(np.int64).sum(axis=1)
     np.testing.assert_array_equal(ovf, total > 32 * W)
     assert ovf[0] and ovf[2] and not ovf[1] and not ovf[3]
+
+
+@pytest.mark.parametrize("kind", PACK_EDGES)
+def test_pack_twin_matches_concat_kernel_on_edges(jx, kind):
+    """Crafted lengths at the Pallas kernel's shape (N a power of two, W a
+    multiple of 128): all 0, all 32, 32-bit codes at the CUDA kernel's
+    segment and tile boundaries, a total of exactly 32 W and one bit more,
+    segments that end inside one word."""
+    N, W = 4096, 1536
+    C, L = pack_edge_inputs(kind, 4, N, W, seed=5)
+    exact, payload, ovf = _exact_and_port(jx, C, L, W)
+    np.testing.assert_array_equal(payload, be_bytes(exact))
+    total = L.astype(np.int64).sum(axis=1)
+    np.testing.assert_array_equal(ovf, total > 32 * W)
 
 
 def _fib_freqs(n):
@@ -183,7 +213,8 @@ def test_cuda_histogram_and_layout_match_twins(cuda, N):
 @pytest.mark.parametrize("N,W", [(4096, 1536), (65536, 24576),
                                  (262144, 98304)])
 def test_cuda_pack_matches_twin(cuda, N, W):
-    """Shared-memory canvas up to W = 53248 words, global canvas above."""
+    """Random lengths, and short codes on one row, at W from 1536 to 98304
+    words: one kernel path for every W."""
     g = torch.Generator(device=cuda).manual_seed(N)
     L = torch.randint(0, 33, (4, N), device=cuda, dtype=torch.int32,
                       generator=g)
@@ -194,3 +225,36 @@ def test_cuda_pack_matches_twin(cuda, N, W):
     payload, ovf = kernels.pack(C, L, W)
     payload_p, ovf_p = kernels.pack_plain(C, L, W)
     assert torch.equal(payload, payload_p) and torch.equal(ovf, ovf_p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", PACK_EDGES)
+@pytest.mark.parametrize("N,W", [(3001, 1536), (5000, 3072), (65536, 24576)])
+def test_cuda_pack_edges_match_twin(cuda, kind, N, W):
+    """Crafted lengths (see ``pack_edge_inputs``) on ragged and full
+    blocks, three rows, output poisoned first: the kernel must write every
+    byte."""
+    C, L = pack_edge_inputs(kind, 3, N, W, seed=N)
+    C, L = tensor(C).to(cuda), tensor(L).to(cuda)
+    want = kernels.pack_plain(C, L, W)
+    poison = torch.full_like(want[0], 0xA5)
+    del poison
+    got = kernels.pack(C, L, W)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", HIST_EDGES)
+@pytest.mark.parametrize("N,offset", [(3000, 0), (4096, 1), (65536, 0)])
+def test_cuda_histogram_edges_match_twin(cuda, kind, N, offset):
+    """Crafted rows (see ``hist_edge_inputs``), random bytes past n_valid,
+    rows at an odd byte offset, output poisoned first."""
+    x, nv = hist_edge_inputs(kind, 3, N, seed=N)
+    flat = torch.zeros(offset + x.size, dtype=torch.uint8, device=cuda)
+    flat[offset:] = tensor(x.reshape(-1)).to(cuda)
+    blocks = flat[offset:].view(3, N)
+    nv = tensor(nv).to(cuda)
+    want = kernels.histogram_plain(blocks, nv)
+    poison = torch.full_like(want, -1)
+    del poison
+    assert torch.equal(kernels.histogram(blocks, nv), want)

@@ -6,8 +6,10 @@ and turned into the port's CPU tensors here.  32-bit words cross as their
 int32 bit pattern, the port's carrier for u32 (torch on the CPU has no
 shifts, compares or gathers for ``torch.uint32``).  ``chain_edge_meta``,
 ``emit_edge_inputs`` and ``run_words`` with the tables of ``fib_block``
-craft the edge cases of the chain, emit and resolve kernels for these tests
-and for ``chip_smoke.py``, which loads this file by path.
+craft the edge cases of the chain, emit and resolve kernels, and
+``hist_edge_inputs`` and ``pack_edge_inputs`` those of the histogram and
+pack kernels, for these tests and for ``chip_smoke.py``, which loads this
+file by path.
 """
 
 from __future__ import annotations
@@ -205,3 +207,106 @@ def run_words(rng: np.random.Generator, B: int, W: int) -> np.ndarray:
     words = np.zeros((B, W + 128), np.uint32)
     words[:, :W] = np.packbits(bits, axis=-1).view(">u4")[..., 0]
     return words
+
+
+HIST_CLUSTER = 2    # CTAs (segments) per block of the histogram kernel
+HIST_EDGES = ("random", "nv0", "nv1", "nv17", "nv-segment", "one-byte",
+              "all-values")
+
+
+def hist_segment(N: int) -> int:
+    """Bytes per segment of the histogram kernel: N / HIST_CLUSTER rounded
+    up to a multiple of 16."""
+    return (-(-N // HIST_CLUSTER) + 15) & ~15
+
+
+def hist_edge_inputs(kind: str, B: int, N: int, seed: int = 0):
+    """The histogram kernel's inputs for one of ``HIST_EDGES``: (blocks
+    (B, N) uint8, n_valid (B,) int32).  Rows alternate text-like and
+    uniform bytes with random n_valid ("random"), every n_valid is 0, 1 or
+    17 (at most N), or ("nv-segment") row by row one byte before, at and
+    one byte past the kernel's first segment boundary; "one-byte" is all
+    spaces and "all-values" each byte value N / 256 times or more, both
+    counted in full.  The padding past n_valid holds random bytes, never
+    zeros, so a count that reads past n_valid shows."""
+    if kind not in HIST_EDGES:
+        raise ValueError(f"unknown histogram edge {kind!r}")
+    rng = np.random.default_rng(seed)
+    x = rng.integers(0, 256, (B, N), dtype=np.uint8)
+    nv = np.full(B, N)
+    if kind == "random":
+        text = np.frombuffer(b" etaoinshrdlu\n", np.uint8)
+        x[::2] = rng.choice(text, (len(x[::2]), N),
+                            p=np.arange(14, 0, -1) / 105)
+        nv = rng.integers(0, N + 1, B)
+    elif kind in ("nv0", "nv1", "nv17"):
+        nv = np.full(B, min(N, int(kind[2:])))
+    elif kind == "nv-segment":
+        nv = np.minimum(N, hist_segment(N) + np.arange(B) % 3 - 1)
+    elif kind == "one-byte":
+        x[:] = ord(" ")
+    elif kind == "all-values":
+        x[:] = rng.permuted(np.arange(N) % 256, axis=0).astype(np.uint8)
+    return x, nv.astype(np.int32)
+
+
+PACK_CLUSTER = 8    # CTAs (segments) per block of the pack kernel
+PACK_TILE = 2048    # codes per tile of one such CTA
+PACK_EDGES = ("random", "zeros", "full32", "straddle", "exact", "over1",
+              "sparse")
+
+
+def pack_segment(N: int) -> int:
+    """Codes per segment of the pack kernel: N / PACK_CLUSTER rounded up
+    to a multiple of 4."""
+    return (-(-N // PACK_CLUSTER) + 3) & ~3
+
+
+def pack_edge_inputs(kind: str, B: int, N: int, W: int, seed: int = 0):
+    """The pack kernel's inputs for one of ``PACK_EDGES``: (C (B, N) uint32
+    right-aligned random codes, L (B, N) int32 lengths).  Lengths are
+    uniform in 0-32 ("random", with 0-8 on odd rows), all 0, all 32,
+    1-32 with a 32-bit code on both sides of every segment and tile
+    boundary ("straddle"), a row total of exactly 32 W ("exact") or one bit
+    more ("over1"), or ("sparse") two codes of 1-3 bits per segment and
+    none in segment 2, so that several segments end inside one word."""
+    if kind not in PACK_EDGES:
+        raise ValueError(f"unknown pack edge {kind!r}")
+    rng = np.random.default_rng(seed)
+    if kind == "random":
+        L = rng.integers(0, 33, (B, N))
+        L[1::2] = rng.integers(0, 9, (len(L[1::2]), N))
+    elif kind in ("zeros", "full32"):
+        L = np.full((B, N), 0 if kind == "zeros" else 32)
+    elif kind == "straddle":
+        L = rng.integers(1, 33, (B, N))
+        seg = pack_segment(N)
+        for lo in range(0, N, max(seg, 1)):
+            for i in range(lo, min(N, lo + seg), PACK_TILE):
+                L[:, max(i - 1, 0):i + 1] = 32
+    elif kind in ("exact", "over1"):
+        T = 32 * W + (kind == "over1")
+        if T > 32 * N:
+            raise ValueError(f"{kind}: 32 N = {32 * N} < {T} bits")
+        L = np.full((B, N), T // N)
+        for row in L:
+            row[rng.choice(N, T - row.sum(), replace=False)] += 1
+            # Move random amounts between random pairs: the sum stays T.
+            p = rng.permutation(N)
+            a, b = p[: N // 2], p[N // 2: 2 * (N // 2)]
+            d = (rng.random(len(a)) * (np.minimum(row[a], 32 - row[b]) + 1)
+                 ).astype(np.int64)
+            row[a] -= d
+            row[b] += d
+    else:  # sparse
+        L = np.zeros((B, N), np.int64)
+        seg = max(pack_segment(N), 1)
+        for k, lo in enumerate(range(0, N, seg)):
+            if k != 2:
+                n = min(2, min(N, lo + seg) - lo)
+                pos = lo + rng.choice(min(N, lo + seg) - lo, n, replace=False)
+                L[:, pos] = rng.integers(1, 4, (B, n))
+    raw = rng.integers(0, 1 << 32, (B, N), dtype=np.uint64)
+    mask = (np.uint64(1) << L.astype(np.uint64)) - np.uint64(1)
+    C = (raw & mask).astype(np.uint32)
+    return C, L.astype(np.int32)
