@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""On-card smoke run of libhuffman_tpu_torch's encode and decode paths.
+"""On-card smoke run of libhuffman_tpu_torch: encode, decode and the API.
 
 Run from the root of a checkout on a machine with one NVIDIA Hopper card and
 the CUDA toolkit:
@@ -67,11 +67,39 @@ It builds the CUDA kernels from ``libhuffman_tpu_torch/csrc`` and then:
   5. error phase: a truncated stream, a flipped tree bit and trailing
      garbage raise the same error class on the device route as on the
      host route;
-  6. prints one JSON line describing the six kernels (launches on the
-     slice, max |err| over every phase, device time and the twin's time
-     per 8 MiB, median over the two corpora, the bound from the bytes each
-     must move at 3.35 TB/s, and the PyTorch call's time for K1 and K2),
-     then the result line ``{"ok": true, "device": {...}}`` last.
+  6. API phase, at the API's default blocksize of 131072 (512 blocks per
+     corpus): ``api.compress`` (the first 128 blocks wire-equal to the
+     host-exact codec, every encode kernel launched, no block re-encoded
+     on the host), ``api.decompress`` (the input back, every decode kernel
+     launched, at most 1% of blocks walked on the host), ``open(path,
+     "wb")`` writing the corpus in 1 MiB writes (the file equal to
+     ``compress``'s stream) and ``open(path, "rb").read(1 MiB)`` reading it
+     back (and ``read()`` at its default 8 KiB over the first 128 blocks), a ``HuffmanDecompressor`` fed the first 8 MiB of the stream in
+     64 KiB pieces (the input's matching whole blocks back), and resume
+     (``encode_range`` over three parts of the block range equal to the
+     stream, 512 ``block_offsets``, ``decode_from_block(stream, 200,
+     300)``); the launch counts are set to 0 before each call and read
+     after it, and each call's GB/s is printed; then K1-K3 against their
+     twins on one 128 x 131072 batch and K5, K6 and K4 on every device
+     plan of the first 128 blocks, exactly, each with its device time
+     beside its bytes bound, and the resident encode batch stage by stage;
+  7. blocksize sweep: ``encode`` and ``decode`` at blocksizes 1 (4 KiB of
+     each corpus), 17 and 1024 (1 MiB), 3072 and 5120 (8 MiB) and 0 (1 MiB,
+     one block), wire-equal to the host-exact codec (computed in worker
+     processes), decoded equal to the input and to the host route; every
+     encode kernel launched from blocksize 17 and every decode kernel at
+     1024, 3072 and 5120; the launches and ``decode.COUNTS`` are printed;
+     wherever the encode launched K1-K3 (every blocksize here) they equal
+     their twins on one batch of the input in the shape encode gave them
+     (128 x blocksize, 1 x 1 MiB at 0), and wherever the decode launched
+     K5, K6 and K4 (17 and up) they equal their twins on every device plan
+     of the stream, exactly;
+  8. prints the smoke's wall time, then one JSON line describing the six
+     kernels (launches summed over the slice, the API phase and the sweep,
+     max |err| over every phase, device time and the twin's time per 8 MiB
+     at 64 KiB blocks, median over the two corpora, the bound from the
+     bytes each must move at 3.35 TB/s, and the PyTorch call's time for K1
+     and K2), then the result line ``{"ok": true, "device": {...}}`` last.
 
 Any failed check exits non-zero before the result line; so does a machine
 without CUDA, and a directory holding this script without the package.
@@ -80,12 +108,18 @@ without CUDA, and a directory holding this script without the package.
 from __future__ import annotations
 
 import importlib.util
+import io
 import json
+import multiprocessing
+import os
 import pathlib
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+import types
+from concurrent.futures import ProcessPoolExecutor
 
 ROOT = pathlib.Path(__file__).resolve().parent
 N = 65536                # bench blocksize
@@ -96,6 +130,16 @@ RAGGED = 40000           # valid bytes in the kernel batch's last row
 CORPORA = ("text", "mixed")
 HBM_BYTES_PER_MS = 3.35e9  # H100 SXM device memory: 3.35 TB/s
 HOST_SHARE_MAX = 0.01      # most blocks the decode slice may walk on the host
+ENCODE_KERNELS = ("histogram", "symbol_layout", "pack")
+DECODE_KERNELS = ("resolve", "chain", "emit")
+API_N = 131072             # the API's default blocksize (format.py)
+FILE_CHUNK = 1 << 20       # HuffmanFile write and read size in the API phase
+FEED_BYTES = 8 << 20       # stream bytes fed to the HuffmanDecompressor
+FEED_PIECE = 64 << 10      # bytes per HuffmanDecompressor.decompress call
+RESUME_RANGE = (200, 300)  # blocks decode_from_block decodes
+# (blocksize, input bytes) of the blocksize sweep; 0 is one whole-input block.
+SWEEP = ((1, 4 << 10), (17, 1 << 20), (1024, 1 << 20), (3072, 8 << 20),
+         (5120, 8 << 20), (0, 1 << 20))
 
 
 class CheckFailed(Exception):
@@ -307,13 +351,43 @@ def outcome(fn):
     return "no error"
 
 
-def kernel_batch(torch, data: bytes, last_row: int = RAGGED):
-    """The first B x N bytes as a device batch whose last row holds
+def encode_against_twins(torch, dev, kernels, blocks, nv, W: int):
+    """K1, K2 and K3 on a batch, and their twins on the same inputs: (max
+    |err| per kernel, the kernels' outputs and the code tables)."""
+    freqs = kernels.histogram(blocks, nv)
+    freqs_p = kernels.histogram_plain(blocks, nv)
+    _l, _r, parent, pbit, _root = dev.build_trees(freqs)
+    codes, lens, _ovf = dev.extract_codes(parent, pbit)
+    codes = dev.as_u32_bits(codes)
+    C, L = kernels.symbol_layout(blocks, codes, lens, nv)
+    Cp, Lp = kernels.symbol_layout_plain(blocks, codes, lens, nv)
+    payload, ovf = kernels.pack(C, L, W)
+    payload_p, ovf_p = kernels.pack_plain(C, L, W)
+    torch.cuda.synchronize()
+    errs = {"histogram": max_abs_err(freqs, freqs_p),
+            "symbol_layout": max(max_abs_err(C, Cp), max_abs_err(L, Lp)),
+            "pack": max(max_abs_err(payload, payload_p),
+                        max_abs_err(ovf, ovf_p))}
+    return errs, {"freqs": freqs, "codes": codes, "lens": lens, "C": C,
+                  "L": L, "payload": payload}
+
+
+def encode_bound_bytes(n: int, W: int) -> dict:
+    """Bytes each encode kernel must move on a B x n batch with W payload
+    words per block: every input read once, every output written once."""
+    return {"histogram": B * n + 4 * B + 4 * B * 512,
+            "symbol_layout": B * n + 2 * 4 * B * 256 + 4 * B + 2 * 4 * B * n,
+            "pack": 2 * 4 * B * n + 4 * B * W + B}
+
+
+def kernel_batch(torch, data: bytes, last_row: int = RAGGED, n: int = N,
+                 rows: int = B):
+    """The first rows x n bytes as a device batch whose last row holds
     ``last_row`` valid bytes, zero-padded as encode.encode pads."""
     import numpy as np
 
-    x = np.frombuffer(data[:KERNEL_BYTES], np.uint8).reshape(B, N).copy()
-    nv = np.full(B, N, np.int32)
+    x = np.frombuffer(data[:rows * n], np.uint8).reshape(rows, n).copy()
+    nv = np.full(rows, n, np.int32)
     nv[-1] = last_row
     x[-1, last_row:] = 0
     return (torch.from_numpy(x).cuda(), torch.from_numpy(nv).cuda())
@@ -323,13 +397,345 @@ def max_abs_err(a, b) -> int:
     return int((a.long() - b.long()).abs().max())
 
 
+def resident_encode(torch, dev, kernels, blocks, nv, W: int, tag: str,
+                    card: str) -> None:
+    """Print the device time of ``encode_blocks`` on a resident batch, whole
+    and stage by stage."""
+    Bb, n = blocks.shape
+    t_all = cuda_ms(torch, lambda: dev.encode_blocks(blocks, nv, W), 5,
+                    busy=False)
+    stages, total, share = stage_ms(torch, dev, kernels, blocks, nv, W)
+    print(f"{tag}: encode_blocks {t_all:.3f} ms per {Bb}x{n} batch = "
+          f"{Bb * n / t_all / 1e6:.4f} GB/s; stages in one pass (median of "
+          f"5) " + ", ".join(f"{k} {v:.4f}" for k, v in stages.items())
+          + f" ms, sum {total:.3f} ms; build_trees share "
+          f"{100 * share:.1f}% ({card})", flush=True)
+
+
+def counted(torch, kernels, fn):
+    """``fn()`` with the launch counts set to 0 just before it and read
+    just after: (its result, wall seconds, launches per kernel)."""
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, dict(kernels.LAUNCHES)
+
+
+def reference_pieces(data: bytes, bs: int, piece: int = 1 << 18):
+    """``data`` cut at block boundaries into pieces of about ``piece``
+    bytes: the host codec's encodings of the pieces, joined, are its
+    encoding of ``data`` (blocks are independent), so worker processes can
+    share the work."""
+    if bs <= 0:
+        return [data]
+    step = bs * max(1, piece // bs)
+    return [data[i : i + step] for i in range(0, len(data), step)]
+
+
+def api_phase(torch, m, streams, launches, errs, card, pool):
+    """The bz2-style API at its default blocksize: compress, decompress,
+    HuffmanFile through open(), the incremental decompressor and resume on
+    SLICE_BYTES of each corpus, then K1-K6 against their twins at
+    N = API_N."""
+    import numpy as np
+
+    Wa = m.enc._pack_params(API_N)
+    nblocks = SLICE_BYTES // API_N
+    edges = [0, nblocks // 3, 2 * nblocks // 3, None]
+    for c in CORPORA:
+        data = streams[c]
+        # The host codec's encoding of the first B blocks, from the worker
+        # processes, before anything is timed.
+        pieces = reference_pieces(data[: B * API_N], API_N, 1 << 20)
+        ref = b"".join(pool.map(m.hostref.encode, pieces,
+                                [API_N] * len(pieces)))
+
+        m.enc.COUNTS["host_reencoded_blocks"] = 0
+        stream, wall, used = counted(torch, m.kernels,
+                                     lambda: m.api.compress(data))
+        add_launches(launches, used)
+        check(all(used[k] > 0 for k in ENCODE_KERNELS),
+              f"{c}: a kernel was not launched by api.compress: {used}")
+        check(m.enc.COUNTS["host_reencoded_blocks"] == 0,
+              f"{c}: blocks re-encoded on the host: {m.enc.COUNTS}")
+        check(stream[: len(ref)] == ref, f"{c}: api.compress: wire bytes "
+              f"of the first {B} blocks differ from hostref")
+        print(f"api compress [{c}]: {len(data)} B -> {len(stream)} B (ratio "
+              f"{len(stream) / len(data):.4f}), {nblocks} blocks of "
+              f"{API_N}; {len(data) / wall / 1e9:.4f} GB/s end to end "
+              f"({wall:.3f} s); launches {used}; host re-encoded 0; first "
+              f"{B} blocks wire-equal to hostref ({card})", flush=True)
+
+        reset_counts(m.dec)
+        back, wall, used = counted(torch, m.kernels,
+                                   lambda: m.api.decompress(stream))
+        add_launches(launches, used)
+        counts = dict(m.dec.COUNTS)
+        check(back == data, f"{c}: api.decompress did not return the input")
+        check(all(used[k] > 0 for k in DECODE_KERNELS),
+              f"{c}: a kernel was not launched by api.decompress: {used}")
+        check(counts["host_decoded_blocks"] <= HOST_SHARE_MAX * nblocks,
+              f"{c}: api.decompress walked too many blocks on the host: "
+              f"{counts}")
+        print(f"api decompress [{c}]: {len(back) / wall / 1e9:.4f} GB/s end "
+              f"to end ({wall:.3f} s); launches {used}; blocks {counts}; "
+              f"equal to the input ({card})", flush=True)
+
+        offs, t_offs, _ = counted(torch, m.kernels,
+                                  lambda: m.resume.block_offsets(stream))
+        check(len(offs) == nblocks and offs[0] == 0,
+              f"{c}: block_offsets gave {len(offs)} offsets, not {nblocks}")
+        # The file lives in the checkout's build directory (git-ignored).
+        (ROOT / "build").mkdir(exist_ok=True)
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+            path = os.path.join(tmp, "corpus.hm")
+
+            def write():
+                with m.api.open(path, "wb") as f:
+                    for i in range(0, len(data), FILE_CHUNK):
+                        f.write(data[i : i + FILE_CHUNK])
+
+            def read(name, size):
+                parts = []
+                with m.api.open(name, "rb") as f:
+                    while True:
+                        part = f.read(size)
+                        if not part and f._fp.peek(1) == b"":
+                            return b"".join(parts)
+                        parts.append(part)
+
+            _, t_w, used_w = counted(torch, m.kernels, write)
+            with open(path, "rb") as f:
+                check(f.read() == stream, f"{c}: the file HuffmanFile wrote "
+                      f"differs from api.compress's stream")
+            reset_counts(m.dec)
+            back, t_r, used_r = counted(torch, m.kernels,
+                                        lambda: read(path, FILE_CHUNK))
+            counts_r = dict(m.dec.COUNTS)
+            # read() at its default size, io.DEFAULT_BUFFER_SIZE compressed
+            # bytes, over the first B blocks.
+            head = os.path.join(tmp, "head.hm")
+            with open(head, "wb") as f:
+                f.write(stream[: offs[B]])
+            reset_counts(m.dec)
+            got, t_d, used_d = counted(torch, m.kernels,
+                                       lambda: read(head, -1))
+        add_launches(launches, used_w)
+        add_launches(launches, used_r)
+        add_launches(launches, used_d)
+        check(back == data, f"{c}: HuffmanFile read did not return the input")
+        check(got == data[: B * API_N], f"{c}: HuffmanFile read() at its "
+              f"default size did not return the first {B} blocks")
+        print(f"api HuffmanFile [{c}]: open(..., 'wb') in {FILE_CHUNK} B "
+              f"writes {len(data) / t_w / 1e9:.4f} GB/s ({t_w:.3f} s; file "
+              f"equal to api.compress's stream; launches {used_w}); "
+              f"open(..., 'rb').read({FILE_CHUNK}) {len(data) / t_r / 1e9:.4f}"
+              f" GB/s ({t_r:.3f} s; launches {used_r}; blocks {counts_r}); "
+              f"round trip {len(data) / (t_w + t_r) / 1e9:.4f} GB/s, equal "
+              f"to the input ({card})", flush=True)
+        print(f"api HuffmanFile [{c}]: read() at its default "
+              f"{io.DEFAULT_BUFFER_SIZE} B over the first {B} blocks "
+              f"({offs[B]} B) {len(got) / t_d / 1e9:.4f} GB/s ({t_d:.3f} s; "
+              f"launches {used_d}; blocks {dict(m.dec.COUNTS)}), equal to "
+              f"the input ({card})", flush=True)
+
+        ends = offs[1:] + [len(stream)]
+        feed = stream[:FEED_BYTES]
+
+        def drip():
+            d = m.api.HuffmanDecompressor()
+            return b"".join(d.decompress(feed[i : i + FEED_PIECE])
+                            for i in range(0, len(feed), FEED_PIECE))
+
+        reset_counts(m.dec)
+        fed, wall, used = counted(torch, m.kernels, drip)
+        add_launches(launches, used)
+        whole = sum(1 for e in ends if e <= len(feed))
+        check(fed == data[: whole * API_N], f"{c}: HuffmanDecompressor fed "
+              f"{FEED_PIECE} B pieces returned {len(fed)} B, not the input's "
+              f"first {whole} blocks")
+        print(f"api HuffmanDecompressor [{c}]: {len(feed)} B of the stream "
+              f"in {FEED_PIECE} B pieces -> {len(fed)} B ({whole} blocks, "
+              f"equal to the input's prefix); {len(fed) / wall / 1e9:.4f} "
+              f"GB/s ({wall:.3f} s); launches {used}; blocks "
+              f"{dict(m.dec.COUNTS)} ({card})", flush=True)
+
+        parts, t_enc, used = counted(torch, m.kernels, lambda: [
+            m.resume.encode_range(data, API_N, a, b)
+            for a, b in zip(edges[:-1], edges[1:])])
+        add_launches(launches, used)
+        check(b"".join(parts) == stream, f"{c}: encode_range over "
+              f"{edges} differs from api.compress's stream")
+        lo, hi = RESUME_RANGE
+        got, t_dec, used_d = counted(torch, m.kernels, lambda: (
+            m.resume.decode_from_block(stream, lo, hi)))
+        add_launches(launches, used_d)
+        check(got == data[lo * API_N : hi * API_N],
+              f"{c}: decode_from_block({lo}, {hi}) differs from the input")
+        print(f"api resume [{c}]: encode_range over blocks {edges} equal to "
+              f"api.compress ({t_enc:.3f} s; launches {used}); block_offsets "
+              f"{len(offs)} offsets ({t_offs:.3f} s); decode_from_block("
+              f"{lo}, {hi}) equal to the input ({t_dec:.3f} s; launches "
+              f"{used_d}) ({card})", flush=True)
+
+        # ---- K1-K6 against their twins at N = API_N, exact -------------
+        blocks, nv = kernel_batch(torch, data, n=API_N)
+        e, outs = encode_against_twins(torch, m.dev, m.kernels, blocks, nv,
+                                       Wa)
+        C, L = outs["C"], outs["L"]
+        codes, lens = outs["codes"], outs["lens"]
+        del outs
+        for k, v in e.items():
+            errs[k] = max(errs[k], v)
+        check(not any(e.values()), f"{c}: at N={API_N} an encode kernel "
+              f"disagrees with its twin (max |err| {e})")
+        runs = {"histogram": lambda: m.kernels.histogram(blocks, nv),
+                "symbol_layout": lambda: m.kernels.symbol_layout(
+                    blocks, codes, lens, nv),
+                "pack": lambda: m.kernels.pack(C, L, Wa)}
+        bound = encode_bound_bytes(API_N, Wa)
+        for k, fn in runs.items():
+            t = cuda_ms(torch, fn, reps=15)
+            print(f"kernel {k} at N={API_N} [{c}]: {t:.4f} ms, bound "
+                  f"{bound[k] / HBM_BYTES_PER_MS:.4f} ms (B={B}, N={API_N}, "
+                  f"W={Wa}; equal to its twin; {card})", flush=True)
+        resident_encode(torch, m.dev, m.kernels, blocks, nv, Wa,
+                        f"device-resident encode at N={API_N} [{c}]", card)
+        del blocks, nv, C, L, codes, lens, runs
+
+        plans, n_out = device_plans(torch, m.dec, stream[: offs[B]])
+        check(n_out >= B * API_N, f"{c}: the plans of the first {B} blocks "
+              f"cover {n_out} bytes, not {B * API_N}")
+        t = {k: [0.0, 0] for k in DECODE_KERNELS}
+        for p in plans:
+            e, meta, planes, out = against_twins(torch, m.kernels, p)
+            for k, v in e.items():
+                errs[k] = max(errs[k], v)
+            check(not any(e.values()), f"{c}: at N={API_N} a decode kernel "
+                  f"disagrees with its twin (max |err| {e})")
+            moved = decode_bound_bytes(torch, p, meta, planes, out)
+            e_in = (planes[1], planes[2], planes[3], p["caps"], p["OUTW"])
+            runs = {"resolve": lambda: m.kernels.resolve(
+                        p["words"], p["tables"], p["ns"]),
+                    "chain": lambda: m.kernels.chain(meta),
+                    "emit": lambda: m.kernels.emit(*e_in)}
+            for k, fn in runs.items():
+                t[k][0] += cuda_ms(torch, fn, reps=5)
+                t[k][1] += moved[k]
+            del meta, planes, out, e_in, runs
+        shapes = ", ".join(f"B={p['blocks']}/{p['words'].shape[0]} "
+                           f"NP={p['NP']} NS={p['ns']}" for p in plans)
+        for k, (kms, nbytes) in t.items():
+            print(f"kernel {k} at N={API_N} [{c}]: {kms:.4f} ms, bound "
+                  f"{nbytes / HBM_BYTES_PER_MS:.4f} ms over {len(plans)} "
+                  f"plan(s) of the first {B} blocks ({shapes}; equal to its "
+                  f"twin; {card})", flush=True)
+        del plans, stream, back, fed, parts, got
+    print(f"api phase: compress, decompress, HuffmanFile, "
+          f"HuffmanDecompressor and resume at blocksize {API_N} exact on "
+          f"both corpora; K1-K6 equal their twins at N={API_N}", flush=True)
+
+
+def sweep_phase(torch, m, streams, launches, errs, card, pool):
+    """encode and decode at the blocksizes of SWEEP, wire-equal to the host
+    codec and equal to the input and the host route; at each blocksize
+    whose encode launched K1-K3, those kernels on one batch of the input
+    in the shape encode gave them, and at each whose decode launched K5,
+    K6 and K4, those kernels on every device plan of the stream, each
+    equal to its twin."""
+    refs = {(c, bs): pool.map(m.hostref.encode, pieces, [bs] * len(pieces))
+            for c in CORPORA for bs, n in SWEEP
+            for pieces in [reference_pieces(streams[c][:n], bs)]}
+    for c in CORPORA:
+        for bs, n in SWEEP:
+            data = streams[c][:n]
+            m.enc.COUNTS["host_reencoded_blocks"] = 0
+            stream, t_enc, used_e = counted(
+                torch, m.kernels, lambda: m.enc.encode(data, bs))
+            reset_counts(m.dec)
+            back, t_dec, used_d = counted(
+                torch, m.kernels, lambda: m.dec.decode(stream))
+            counts = dict(m.dec.COUNTS)
+            host = m.dec.decode(stream, use_device=False)
+            add_launches(launches, used_e)
+            add_launches(launches, used_d)
+            enc_used = {k: used_e[k] for k in ENCODE_KERNELS}
+            dec_used = {k: used_d[k] for k in DECODE_KERNELS}
+            check(stream == b"".join(refs[c, bs]),
+                  f"{c}: encode at blocksize {bs} differs from hostref")
+            check(back == data and host == data, f"{c}: decode at blocksize "
+                  f"{bs}: device route equal to the input {back == data}, "
+                  f"host route {host == data}")
+            if bs >= 17:
+                check(all(enc_used.values()), f"{c}: blocksize {bs}: an "
+                      f"encode kernel was not launched: {enc_used}")
+            if bs >= 1024:
+                check(all(dec_used.values()), f"{c}: blocksize {bs}: a "
+                      f"decode kernel was not launched: {dec_used}")
+            held = []
+            if all(enc_used.values()):
+                # The shape encode gave the kernels: B blocks of bs bytes,
+                # or at 0 one block of the whole input; the last row ragged
+                # where a block holds more than 1 byte.
+                n_blk = bs or len(data)
+                rows = min(B, len(data) // n_blk)
+                blocks, nv = kernel_batch(
+                    torch, data, last_row=max(1, 2 * n_blk // 3), n=n_blk,
+                    rows=rows)
+                e, _outs = encode_against_twins(
+                    torch, m.dev, m.kernels, blocks, nv,
+                    m.enc._pack_params(n_blk))
+                for k, v in e.items():
+                    errs[k] = max(errs[k], v)
+                check(not any(e.values()), f"{c}: at N={n_blk} an encode "
+                      f"kernel disagrees with its twin (max |err| {e})")
+                held.append(f"K1-K3 on a {rows}x{n_blk} batch")
+                del blocks, nv, _outs
+            if all(dec_used.values()):
+                plans, _n_out = device_plans(torch, m.dec, stream)
+                for p in plans:
+                    e, *_outs = against_twins(torch, m.kernels, p)
+                    for k, v in e.items():
+                        errs[k] = max(errs[k], v)
+                    check(not any(e.values()), f"{c}: at blocksize {bs} a "
+                          f"decode kernel disagrees with its twin (max "
+                          f"|err| {e})")
+                    del _outs
+                held.append(f"K5, K6 and K4 on {len(plans)} plan(s)")
+                del plans
+            print(f"sweep [{c}] blocksize {bs}: {n} B -> {len(stream)} B, "
+                  f"wire-equal to hostref; encode {t_enc:.3f} s, launches "
+                  f"{enc_used}, host re-encoded "
+                  f"{m.enc.COUNTS['host_reencoded_blocks']}; decode "
+                  f"{t_dec:.3f} s, launches {dec_used}, blocks {counts}; "
+                  f"equal to the input and the host route; "
+                  f"{' and '.join(held) or 'no kernel'} equal to the twins "
+                  f"({card})", flush=True)
+    print("sweep: blocksizes " + ", ".join(str(bs) for bs, _n in SWEEP)
+          + " wire- and byte-exact on both corpora", flush=True)
+
+
+def add_launches(total: dict, used: dict) -> None:
+    for k, v in used.items():
+        total[k] += v
+
+
+def reset_counts(dec) -> None:
+    for k in dec.COUNTS:
+        dec.COUNTS[k] = 0
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     sys.path.insert(0, str(ROOT))
+    from libhuffman_tpu_torch import api, resume
     from libhuffman_tpu_torch import decode as dec
     from libhuffman_tpu_torch import encode as enc
     from libhuffman_tpu_torch import native
@@ -371,23 +777,12 @@ def main() -> int:
     library_ms = {"histogram": [], "symbol_layout": []}
     for c in CORPORA:
         blocks, nv = kernel_batch(torch, streams[c])
-        freqs = kernels.histogram(blocks, nv)
-        freqs_p = kernels.histogram_plain(blocks, nv)
-        _l, _r, parent, pbit, _root = dev.build_trees(freqs)
-        codes, lens, _ovf = dev.extract_codes(parent, pbit)
-        codes = dev.as_u32_bits(codes)
-        C, L = kernels.symbol_layout(blocks, codes, lens, nv)
-        Cp, Lp = kernels.symbol_layout_plain(blocks, codes, lens, nv)
-        payload, ovf = kernels.pack(C, L, W)
-        payload_p, ovf_p = kernels.pack_plain(C, L, W)
-        torch.cuda.synchronize()
-        errs["histogram"] = max(errs["histogram"],
-                                max_abs_err(freqs, freqs_p))
-        errs["symbol_layout"] = max(errs["symbol_layout"],
-                                    max_abs_err(C, Cp),
-                                    max_abs_err(L, Lp))
-        errs["pack"] = max(errs["pack"], max_abs_err(payload, payload_p),
-                           max_abs_err(ovf, ovf_p))
+        e, outs = encode_against_twins(torch, dev, kernels, blocks, nv, W)
+        for k, v in e.items():
+            errs[k] = max(errs[k], v)
+        freqs, codes, lens, C, L, payload = (
+            outs[k] for k in ("freqs", "codes", "lens", "C", "L", "payload"))
+        del outs
         check(int(freqs[:-1, :256].sum()) == (B - 1) * N
               and int(freqs[-1].sum()) == RAGGED,
               f"{c}: histogram totals")
@@ -400,12 +795,8 @@ def main() -> int:
             "pack": (lambda: kernels.pack(C, L, W),
                      lambda: kernels.pack_plain(C, L, W)),
         }
-        # Bytes each kernel must move: every input read once, every output
-        # written once.
-        bound_bytes["histogram"].append(B * N + 4 * B + 4 * B * 512)
-        bound_bytes["symbol_layout"].append(
-            B * N + 2 * 4 * B * 256 + 4 * B + 2 * 4 * B * N)
-        bound_bytes["pack"].append(2 * 4 * B * N + 4 * B * W + B)
+        for k, v in encode_bound_bytes(N, W).items():
+            bound_bytes[k].append(v)
         # Their inputs are built outside the timed window: K1's row-offset
         # index (the twin's), K2's table codes | lens << 32 and int64 index
         # (the gather leaves out K2's n_valid mask).
@@ -450,7 +841,7 @@ def main() -> int:
                   f"{8 * B * N} B), fill_ of pack's payload {lim[4]:.4f} ms "
                   f"({4 * B * W} B) ({card})", flush=True)
             del f32
-        del blocks, nv, freqs, freqs_p, C, L, Cp, Lp, payload, payload_p
+        del blocks, nv, freqs, codes, lens, C, L, payload
         del idx, table, gidx, library
     for k in ("histogram", "symbol_layout", "pack"):
         check(errs[k] == 0,
@@ -642,20 +1033,13 @@ def main() -> int:
 
     # ---- slice: the encode and decode paths end to end -----------------
     launches = {k: 0 for k in kernels.LAUNCHES}
-    encode_kernels = ("histogram", "symbol_layout", "pack")
-    decode_kernels = ("resolve", "chain", "emit")
     for c in CORPORA:
         data = streams[c]
-        torch.cuda.synchronize()
-        kernels.reset_launches()
         enc.COUNTS["host_reencoded_blocks"] = 0
-        t0 = time.perf_counter()
-        stream = enc.encode(data, N)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        used = {k: kernels.LAUNCHES[k] for k in encode_kernels}
-        for k in encode_kernels:
-            launches[k] += used[k]
+        stream, wall, used = counted(torch, kernels,
+                                     lambda: enc.encode(data, N))
+        add_launches(launches, used)
+        used = {k: used[k] for k in ENCODE_KERNELS}
         check(all(v > 0 for v in used.values()),
               f"{c}: a kernel was not launched by the encode run: {used}")
         check(enc.COUNTS["host_reencoded_blocks"] == 0,
@@ -669,32 +1053,17 @@ def main() -> int:
               f"{used}; host re-encoded 0; first {B} blocks wire-equal to "
               f"hostref ({card})", flush=True)
 
-        # Device-resident batch: encode_blocks whole, and stage by stage.
         blocks, nv = kernel_batch(torch, data, last_row=N)
-        t_all = cuda_ms(torch, lambda: dev.encode_blocks(blocks, nv, W), 5,
-                        busy=False)
-        stages, total, share = stage_ms(torch, dev, kernels, blocks, nv, W)
-        print(f"device-resident encode [{c}]: encode_blocks {t_all:.3f} ms "
-              f"per {B}x{N} batch = {KERNEL_BYTES / t_all / 1e6:.4f} GB/s; "
-              f"stages in one pass (median of 5) "
-              + ", ".join(f"{k} {v:.4f}" for k, v in stages.items())
-              + f" ms, sum {total:.3f} ms; build_trees share "
-              f"{100 * share:.1f}% ({card})", flush=True)
+        resident_encode(torch, dev, kernels, blocks, nv, W,
+                        f"device-resident encode [{c}]", card)
         del blocks, nv
 
         # Decode: the device route (the default), then the host route.
-        torch.cuda.synchronize()
-        kernels.reset_launches()
-        for k in dec.COUNTS:
-            dec.COUNTS[k] = 0
-        t0 = time.perf_counter()
-        back = dec.decode(stream)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        used = {k: kernels.LAUNCHES[k] for k in decode_kernels}
+        reset_counts(dec)
+        back, wall, used = counted(torch, kernels, lambda: dec.decode(stream))
+        add_launches(launches, used)
+        used = {k: used[k] for k in DECODE_KERNELS}
         counts = dict(dec.COUNTS)
-        for k in decode_kernels:
-            launches[k] += used[k]
         check(back == data, f"{c}: round trip through device decode failed")
         check(all(v > 0 for v in used.values()),
               f"{c}: a kernel was not launched by the decode run: {used}")
@@ -797,6 +1166,23 @@ def main() -> int:
             print(f"errors [{c}] {case}: {d} on both routes", flush=True)
         del stream, prefix, flipped, cases
 
+    # ---- the API at 128 KiB blocks, and the blocksize sweep -------------
+    m = types.SimpleNamespace(api=api, dec=dec, dev=dev, enc=enc,
+                              hostref=hostref, kernels=kernels, resume=resume)
+    # The host codec's reference encodings are made by worker processes
+    # (numpy only; no torch, no card) while the card works.
+    pool = ProcessPoolExecutor(max(1, min(7, (os.cpu_count() or 2) - 1)),
+                               mp_context=multiprocessing.get_context("spawn"))
+    try:
+        t0 = time.perf_counter()
+        api_phase(torch, m, streams, launches, errs, card, pool)
+        print(f"api phase: {time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        sweep_phase(torch, m, streams, launches, errs, card, pool)
+        print(f"sweep phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+
     sources = {"histogram": "histogram.cu", "symbol_layout": "layout.cu",
                "pack": "pack.cu", "resolve": "resolve.cu",
                "chain": "chain.cu", "emit": "emit.cu"}
@@ -806,6 +1192,8 @@ def main() -> int:
                 "resolve": "libhuffman_tpu/ops/decode_v3.py:212",
                 "chain": "libhuffman_tpu/ops/decode_v3.py:331",
                 "emit": "libhuffman_tpu/ops/concat_kernel.py:340"}
+    print(f"smoke wall: {time.perf_counter() - t_start:.1f} s, the kernels' "
+          f"build included ({card})", flush=True)
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda",
          "source": f"libhuffman_tpu_torch/csrc/{sources[k]}",

@@ -9,8 +9,13 @@ runtime shared with the JAX package.  Decode: per-position codeword
 resolution, the codeword chain and the byte emission are CUDA kernels, fed
 by plans the host builds from a speculative header scan.
 
-Importing the package does no CUDA work and imports neither jax nor
-libhuffman_tpu; the encode/decode/api submodules load on first use.
+The public surface is the JAX package's: the bz2-style API
+(``compress``, ``decompress``, ``HuffmanCompressor``,
+``HuffmanDecompressor``, ``HuffmanFile``, ``open``; each takes ``device``,
+"cuda" by default, "cpu" for the kernels' plain-torch twins), block-aligned
+resume (``resume``) and the tracing and timing hooks (``trace``).  Importing
+the package does no CUDA work and imports neither jax nor libhuffman_tpu;
+the api, encode, decode, resume and trace modules load on first use.
 Low-level entry points: ``libhuffman_tpu_torch.encode.encode(data,
 blocksize, device=...)`` and ``libhuffman_tpu_torch.decode.decode(stream,
 device=...)``.
@@ -27,13 +32,25 @@ from .errors import (
     BtreeCorruptedError,
     error_string,
 )
-from .format import DEFAULT_BLOCK_SIZE, DEFAULT_MEM_LIMIT
-from .config import EncodeConfig
+from .format import (
+    DEFAULT_BLOCK_SIZE,
+    DEFAULT_MEM_LIMIT,
+    describe_tree,
+    node_to_string,
+)
+from .config import DecodeConfig, EncodeConfig
+from .histogram import Histogram
 
 __version__ = "0.1.0"
 
-_LAZY = {"HuffmanCompressor": "api", "compress": "api"}
-_SUBMODULES = ("api", "decode", "encode", "native", "ops", "utils")
+# Names whose modules import torch, loaded on first use: attribute -> module.
+_LAZY = {name: "api" for name in (
+    "HuffmanFile", "HuffmanCompressor", "HuffmanDecompressor", "compress",
+    "decompress", "open")}
+_SUBMODULES = {name: name for name in (
+    "api", "decode", "encode", "native", "ops", "resume", "symbols",
+    "utils")}
+_SUBMODULES["trace"] = "utils.trace"
 
 __all__ = [
     "ErrorCode",
@@ -43,11 +60,19 @@ __all__ = [
     "BtreeOverflowError",
     "BtreeCorruptedError",
     "error_string",
+    "HuffmanFile",
     "HuffmanCompressor",
+    "HuffmanDecompressor",
     "compress",
+    "decompress",
+    "open",
     "DEFAULT_BLOCK_SIZE",
     "DEFAULT_MEM_LIMIT",
     "EncodeConfig",
+    "DecodeConfig",
+    "Histogram",
+    "describe_tree",
+    "node_to_string",
     "__version__",
 ]
 
@@ -57,5 +82,5 @@ def __getattr__(name):
         mod = importlib.import_module(f".{_LAZY[name]}", __name__)
         return getattr(mod, name)
     if name in _SUBMODULES:
-        return importlib.import_module(f".{name}", __name__)
+        return importlib.import_module(f".{_SUBMODULES[name]}", __name__)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

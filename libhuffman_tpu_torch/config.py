@@ -1,19 +1,19 @@
-"""Frozen encoder configuration mirroring the encode half of ``huf_config_t``.
+"""Frozen encoder and decoder configurations mirroring ``huf_config_t``.
 
 The reference bundles every tunable into one value-copied struct
 (include/huffman/config.h:10-36: length, blocksize, reader_buffer_size,
 writer_buffer_size, reader, writer) with zero-value semantics: blocksize == 0
 treats the whole input as one block (src/encoder.c:163-165) and zero buffer
-sizes mean unbuffered I/O (src/bufio.c:58-68).  This dataclass carries the
-same fields and defaults, plus the device knobs of the PyTorch port (batching
-and the torch device the kernels run on).
+sizes mean unbuffered I/O (src/bufio.c:58-68).  These dataclasses carry the
+same fields and defaults, plus the device knobs of the PyTorch port (batching,
+the decode route and the torch device the kernels run on).
 """
 
 from __future__ import annotations
 
 import dataclasses
 
-from .format import DEFAULT_BLOCK_SIZE
+from .format import DEFAULT_BLOCK_SIZE, DEFAULT_MEM_LIMIT
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,3 +43,34 @@ class EncodeConfig:
             raise ValueError("length and blocksize must be non-negative")
         if self.batch_blocks <= 0:
             raise ValueError("batch_blocks must be positive")
+
+
+@dataclasses.dataclass(frozen=True)
+class DecodeConfig:
+    """Decoder settings (huf_config_t analogue, decode side).
+
+    length: compressed bytes to consume; 0 = the whole input.
+    memlimit: working-buffer sizing hint (the reference grows its buffer
+        past it rather than failing, so it is no cap).
+    reader_buffer_size / writer_buffer_size: host I/O buffering hints, as
+        in :class:`EncodeConfig`.
+    ``decode.decode`` reads only ``length``, ``use_device`` and ``device``:
+    ``memlimit`` and the two buffer sizes are kept so the class matches the
+    JAX package's field for field, and have no effect on the decode.
+    use_device: route eligible blocks through the decode kernels (the
+        host-exact walk takes the rest either way); False walks every block
+        on the host.
+    device: torch device the decode kernels run on ("cuda", "cuda:1", or
+        "cpu" for the plain-torch twins).
+    """
+
+    length: int = 0
+    memlimit: int = DEFAULT_MEM_LIMIT
+    reader_buffer_size: int = 0
+    writer_buffer_size: int = 0
+    use_device: bool = True
+    device: str = "cuda"
+
+    def __post_init__(self):
+        if self.length < 0 or self.memlimit < 0:
+            raise ValueError("length and memlimit must be non-negative")

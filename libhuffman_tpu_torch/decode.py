@@ -431,14 +431,22 @@ def _chain(data: bytes, length: int, device: torch.device | None):
 
 
 def decode(data: bytes, length: int | None = None, use_device: bool = True,
-           device="cuda") -> bytes:
+           device="cuda", config=None) -> bytes:
     """Whole-stream decode with the reference's strict semantics: the first
     failing block in chain order raises (src/decoder.c:218-275).
 
     ``length`` caps the compressed bytes consumed.  ``device`` is where the
     kernels run: a CUDA device, or "cpu" for their plain-torch twins; the
     default raises when CUDA is absent.  ``use_device=False`` walks every
-    block on the host."""
+    block on the host.  A :class:`~libhuffman_tpu_torch.config.DecodeConfig`
+    overrides these knobs: its ``use_device`` picks the route, its
+    ``device`` is where the kernels run, and a non-zero ``length`` caps the
+    bytes consumed."""
+    if config is not None:
+        use_device = config.use_device
+        device = config.device
+        if config.length:
+            length = config.length
     dev = resolve_device(device) if use_device else None
     if length is None:
         length = len(data)

@@ -3,13 +3,14 @@
 The C++ source is shared with the JAX package and referenced by path, not
 copied.  The port uses the entry points of its encode path (batch tree
 serialization and whole-batch stream assembly), of its device decode path
-(header scan, resolve-table build, plan staging) and of the host-exact
-decode route (the sequential chain scan).  The library is compiled with g++ on first
-use into ``build/native/`` beside the package (or the directory named by
-``LIBHUFFMAN_TPU_TORCH_NATIVE_DIR``), keyed by a hash of the source, so the
-JAX package's cache is never shared.  Every entry point has a pure-Python
-equivalent: without a toolchain, ``available()`` is False and callers take
-the slower host path, never a different result.
+(header scan, resolve-table build, plan staging), of the host-exact
+decode route (the sequential chain scan) and of the incremental
+decompressor (the resumable measurement walk).  The library is compiled
+with g++ on first use into ``build/native/`` beside the package (or the
+directory named by ``LIBHUFFMAN_TPU_TORCH_NATIVE_DIR``), keyed by a hash
+of the source, so the JAX package's cache is never shared.  Every entry
+point has a pure-Python equivalent: without a toolchain, ``available()``
+is False and callers take the slower host path, never a different result.
 """
 
 from __future__ import annotations
@@ -93,6 +94,14 @@ def _lib():
     lib.stage_plan.argtypes = [
         i8p, ctypes.c_int64, i64p, i64p, ctypes.c_int32, ctypes.c_int64, u32p]
     lib.stage_plan.restype = None
+    lib.walk_progress.argtypes = [
+        i16p, ctypes.c_int32, i8p, ctypes.c_int64, ctypes.c_uint64]
+    lib.walk_progress.restype = ctypes.c_uint64
+    lib.walk_progress_resume.argtypes = [
+        i16p, ctypes.c_int32, i8p, ctypes.c_int64, ctypes.c_uint64,
+        ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int32),
+        ctypes.POINTER(ctypes.c_uint64)]
+    lib.walk_progress_resume.restype = ctypes.c_int32
     return lib
 
 
@@ -239,3 +248,33 @@ def stage_plan(data: np.ndarray, offs: np.ndarray, caps: np.ndarray,
         np.ascontiguousarray(offs, np.int64),
         np.ascontiguousarray(caps, np.int64), B, row_words, out)
     return out
+
+
+def walk_progress(tree: np.ndarray, payload: np.ndarray, n_sym: int) -> int:
+    """Symbols the available ``payload`` of one block yields (a walk that
+    measures and writes nothing; 0 on a bad tree)."""
+    return int(_lib().walk_progress(
+        np.ascontiguousarray(tree, np.int16), len(tree),
+        np.ascontiguousarray(payload, np.uint8), len(payload), n_sym,
+    ))
+
+
+def walk_progress_resume(tree: np.ndarray, payload: np.ndarray, n_sym: int,
+                         state: tuple[int, int, int] | None = None
+                         ) -> tuple[int, tuple[int, int, int]]:
+    """Resumable measurement walk: state = (node, restored, pos) carries the
+    walk across incremental feeds so each payload byte is visited once.
+
+    Returns (restored, new_state); node -1 in the state marks a walk frozen
+    on corruption (the caller's decode attempt classifies it)."""
+    node, restored, pos = state if state is not None else (0, 0, 0)
+    c_pos = ctypes.c_int64(pos)
+    c_state = ctypes.c_int32(node)
+    c_restored = ctypes.c_uint64(restored)
+    _lib().walk_progress_resume(
+        np.ascontiguousarray(tree, np.int16), len(tree),
+        np.ascontiguousarray(payload, np.uint8), len(payload), n_sym,
+        ctypes.byref(c_pos), ctypes.byref(c_state), ctypes.byref(c_restored),
+    )
+    return int(c_restored.value), (c_state.value, int(c_restored.value),
+                                   c_pos.value)

@@ -16,6 +16,7 @@ import torch
 from libhuffman_tpu import decode as jdec
 from libhuffman_tpu.ops import hostref
 from libhuffman_tpu_torch import decode as tdec
+from torch_port_util import one_torch_thread  # noqa: F401
 from torch_port_util import corpora
 
 _CORPUS = corpora()

@@ -26,6 +26,7 @@ from libhuffman_tpu_torch import native as tnative
 from libhuffman_tpu_torch.format import parse_block_header
 from libhuffman_tpu_torch.ops import decode as tops
 from libhuffman_tpu_torch.ops import hostref, kernels
+from torch_port_util import one_torch_thread  # noqa: F401
 from torch_port_util import (CHAIN_EDGES, CHAIN_SEG, EMIT_EDGES, EMIT_TILE,
                              RESOLVE_SPAN, block_tables, chain_edge_meta,
                              corpora, emit_edge_inputs, fib_block, run_words,

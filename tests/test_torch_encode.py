@@ -13,6 +13,7 @@ from libhuffman_tpu import encode as jenc
 from libhuffman_tpu.ops import hostref
 from libhuffman_tpu_torch import decode as tdec
 from libhuffman_tpu_torch import encode as tenc
+from torch_port_util import one_torch_thread  # noqa: F401
 from torch_port_util import corpora
 
 _CORPUS = corpora()
@@ -65,7 +66,7 @@ def test_blocksizes_off_the_pow2_packer(bs):
     _check(_CORPUS.text(_SIZE // 2), bs)
 
 
-def test_decode_device_route_is_not_ported():
+def test_decode_routes_and_counts_on_cpu():
     """Both decode routes read the port's stream, and the device route on
     CPU tensors counts its block as device-decoded."""
     stream = tenc.encode(b"abracadabra", 4096, device="cpu")

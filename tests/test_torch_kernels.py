@@ -17,6 +17,7 @@ import torch
 
 from libhuffman_tpu_torch.ops import device as tdev
 from libhuffman_tpu_torch.ops import hostref, kernels
+from torch_port_util import one_torch_thread  # noqa: F401
 from torch_port_util import (HIST_EDGES, PACK_EDGES, batch, be_bytes,
                              hist_edge_inputs, left_align, pack_edge_inputs,
                              tensor, u32)

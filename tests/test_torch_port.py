@@ -27,7 +27,11 @@ def test_import_pulls_in_neither_jax_nor_the_jax_package():
         "import libhuffman_tpu_torch.ops.device, libhuffman_tpu_torch.ops._build\n"
         "import libhuffman_tpu_torch.ops.kernels, libhuffman_tpu_torch.utils.trace\n"
         "import libhuffman_tpu_torch.ops.decode, libhuffman_tpu_torch.config\n"
-        "p.compress, p.HuffmanCompressor, p.EncodeConfig\n"
+        "import libhuffman_tpu_torch.resume, libhuffman_tpu_torch.symbols\n"
+        "import libhuffman_tpu_torch.histogram\n"
+        "p.compress, p.HuffmanCompressor, p.EncodeConfig, p.DecodeConfig\n"
+        "p.HuffmanDecompressor, p.HuffmanFile, p.open, p.decompress\n"
+        "p.Histogram, p.describe_tree, p.node_to_string, p.resume, p.trace\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'libhuffman_tpu'))\n"
         "print(bad, torch.cuda.is_initialized())\n"

@@ -9,7 +9,8 @@ shifts, compares or gathers for ``torch.uint32``).  ``chain_edge_meta``,
 craft the edge cases of the chain, emit and resolve kernels, and
 ``hist_edge_inputs`` and ``pack_edge_inputs`` those of the histogram and
 pack kernels, for these tests and for ``chip_smoke.py``, which loads this
-file by path.
+file by path.  ``one_torch_thread`` is the autouse fixture the port's test
+modules import.
 """
 
 from __future__ import annotations
@@ -18,9 +19,23 @@ import importlib.util
 import pathlib
 
 import numpy as np
+import pytest
 import torch
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Run a test module's CPU torch ops on one thread, and restore the
+    count after it.  The suite runs several pytest workers at once; with
+    torch's default of one thread per core in each of them the cores are
+    oversubscribed, and the kernels' twins, many small ops each, then run
+    tens of times slower than on one thread."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def tensor(a) -> torch.Tensor:
