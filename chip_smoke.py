@@ -94,8 +94,33 @@ It builds the CUDA kernels from ``libhuffman_tpu_torch/csrc`` and then:
      (128 x blocksize, 1 x 1 MiB at 0), and wherever the decode launched
      K5, K6 and K4 (17 and up) they equal their twins on every device plan
      of the stream, exactly;
+  7b. parallel phase (libhuffman_tpu_torch/parallel/shard.py):
+     ``block_mesh()`` of the machine (as many devices as cards; the first
+     B blocks of each corpus wire-equal to the host-exact codec and
+     decoded back), then ``EncodeConfig(blocksize=N, mesh=...)`` and
+     ``DecodeConfig(mesh=...)`` with the card listed 2 and 3 times on
+     64 MiB of each corpus: the stream equal to the slice's single-device
+     stream and to the host-exact codec on the first B blocks, every
+     kernel launched, the input back with at most 1% of blocks walked on
+     the host, a truncated stream raising the host route's error class;
+     GB/s of each; K1-K3 against their twins on every row slice of every
+     batch that encode split over the mesh (256 x N, and 128 x N with
+     empty rows in the last batch over 3), and K5, K6 and K4 on every row
+     slice of every plan of the decode (``build_device_plans(lane_mult=k)``),
+     exactly; then ``encode_sharded`` and ``decode_blocks_sharded``
+     over two slices of the card equal to ``encode_blocks`` and
+     ``decode_blocks`` on the kernel phase's batch and on the plans of its
+     encoding, exactly;
+  7c. two-process phase (libhuffman_tpu_torch/parallel/multihost.py): two
+     processes of tests/torch_multihost_worker.py on the card, joined over
+     gloo through a ``file://`` rendezvous, encode and decode 64 MiB of
+     ``text`` at blocksize N: each rank's stream has the single-device
+     stream's sha256, the sizes-only segments lie at their offsets, the
+     decode returns the input on both ranks, and the bytes exchanged stay
+     within the sizes-only bounds; the wall of each step is printed;
   8. prints the smoke's wall time, then one JSON line describing the six
-     kernels (launches summed over the slice, the API phase and the sweep,
+     kernels (launches summed over the slice, the API phase, the sweep and
+     the parallel phase,
      max |err| over every phase, device time and the twin's time per 8 MiB
      at 64 KiB blocks, median over the two corpora, the bound from the
      bytes each must move at 3.35 TB/s, and the PyTorch call's time for K1
@@ -140,6 +165,8 @@ RESUME_RANGE = (200, 300)  # blocks decode_from_block decodes
 # (blocksize, input bytes) of the blocksize sweep; 0 is one whole-input block.
 SWEEP = ((1, 4 << 10), (17, 1 << 20), (1024, 1 << 20), (3072, 8 << 20),
          (5120, 8 << 20), (0, 1 << 20))
+MESH_SPLITS = (2, 3)     # the parallel phase lists the card this many times
+WORKER_TIMEOUT = 300     # seconds for each process of the two-process phase
 
 
 class CheckFailed(Exception):
@@ -717,6 +744,242 @@ def sweep_phase(torch, m, streams, launches, errs, card, pool):
           + " wire- and byte-exact on both corpora", flush=True)
 
 
+def mesh_against_twins(torch, m, data: bytes, stream: bytes, k: int,
+                       errs: dict) -> str:
+    """K1-K3 on every row slice that the encode of ``data`` over a mesh of
+    ``k`` devices gives them, and K5, K6 and K4 on every row slice of the
+    plans that the decode of ``stream`` over it gives them, each against
+    its twin; the errors fold into ``errs``.  Returns what was held."""
+    import numpy as np
+
+    W = m.enc._pack_params(N)
+    enc_shapes = []
+    for batch, n_valid in m.enc._batches(
+            np.frombuffer(data, np.uint8), N,
+            m.config.EncodeConfig().batch_blocks, k):
+        per = len(batch) // k
+        for i in range(k):
+            rows = slice(i * per, (i + 1) * per)
+            blocks, nv = (m.parallel.shard.tensor_on(a[rows], "cuda")
+                          for a in (batch, n_valid))
+            e, _outs = encode_against_twins(torch, m.dev, m.kernels, blocks,
+                                            nv, W)
+            for n, v in e.items():
+                errs[n] = max(errs[n], v)
+            check(not any(e.values()), f"over {k} devices an encode kernel "
+                  f"disagrees with its twin on a {per}x{N} slice "
+                  f"(max |err| {e})")
+            enc_shapes.append(f"{per}x{N} ({int((n_valid[rows] > 0).sum())} "
+                              f"blocks)")
+            del blocks, nv, _outs
+    plans, _n_out = m.dec.build_device_plans(stream, lane_mult=k)
+    dec_shapes = []
+    for p in plans:
+        per = len(p.words) // k
+        for i in range(k):
+            rows = slice(i * per, (i + 1) * per)
+            on_card = {n: m.parallel.shard.tensor_on(a[rows], "cuda")
+                       for n, a in (("words", p.words), ("tables", p.tables),
+                                    ("caps", p.caps))}
+            on_card.update(NP=p.NP, OUTW=p.OUTW, ns=p.ns)
+            e, *_outs = against_twins(torch, m.kernels, on_card)
+            for n, v in e.items():
+                errs[n] = max(errs[n], v)
+            check(not any(e.values()), f"over {k} devices a decode kernel "
+                  f"disagrees with its twin on a {per}-row slice of a "
+                  f"{len(p.words)}-row plan (max |err| {e})")
+            dec_shapes.append(per)
+            del on_card, _outs
+    return (f"K1-K3 on {len(enc_shapes)} slices ({', '.join(enc_shapes)}), "
+            f"K5, K6 and K4 on {len(dec_shapes)} slices of {len(plans)} "
+            f"plans ({min(dec_shapes)}-{max(dec_shapes)} rows each)")
+
+
+def parallel_phase(torch, m, streams, singles, refs, launches, errs, card,
+                   device: str = "cuda:0"):
+    """The block-parallel layer in one process: ``block_mesh()`` of the
+    machine, then each corpus encoded and decoded with ``device`` listed
+    MESH_SPLITS times in a mesh, then ``encode_sharded`` and
+    ``decode_blocks_sharded`` over two slices against the unsharded
+    stages.  Every kernel is held against its twin on the row slices the
+    mesh gives it.  ``singles`` are the slice's single-device streams,
+    ``refs`` the host codec's encodings of their first B blocks."""
+    EncodeConfig, DecodeConfig = m.config.EncodeConfig, m.config.DecodeConfig
+    mesh = m.parallel.block_mesh()
+    check(mesh.size == torch.cuda.device_count(),
+          f"block_mesh() holds {mesh.size} devices, the machine "
+          f"{torch.cuda.device_count()}")
+    for c in CORPORA:
+        data = streams[c][:KERNEL_BYTES]
+        got = m.enc.encode(data, config=EncodeConfig(blocksize=N, mesh=mesh))
+        check(got == refs[c], f"{c}: encode over block_mesh() differs from "
+              f"hostref on the first {B} blocks")
+        check(m.dec.decode(got, config=DecodeConfig(mesh=mesh)) == data,
+              f"{c}: decode over block_mesh() did not return the input")
+    print(f"parallel block_mesh(): {mesh.size} device(s) "
+          f"{[str(d) for d in mesh.devices]}; encode of the first {B} blocks "
+          f"of each corpus equal to hostref, decode equal to the input "
+          f"({card})", flush=True)
+
+    for k in MESH_SPLITS:
+        mesh = m.parallel.block_mesh([device] * k)
+        for c in CORPORA:
+            data = streams[c]
+            m.enc.COUNTS["host_reencoded_blocks"] = 0
+            stream, t_enc, used_e = counted(torch, m.kernels, lambda: (
+                m.enc.encode(data, config=EncodeConfig(blocksize=N,
+                                                       mesh=mesh))))
+            add_launches(launches, used_e)
+            check(stream == singles[c], f"{c}: the encode over {k} x "
+                  f"{device} differs from the single-device stream")
+            check(stream[: len(refs[c])] == refs[c], f"{c}: the encode over "
+                  f"{k} x {device} differs from hostref on the first {B} "
+                  f"blocks")
+            check(all(used_e[n] > 0 for n in ENCODE_KERNELS),
+                  f"{c}: a kernel was not launched by the encode over {k} x "
+                  f"{device}: {used_e}")
+            check(m.enc.COUNTS["host_reencoded_blocks"] == 0,
+                  f"{c}: blocks re-encoded on the host: {m.enc.COUNTS}")
+            reset_counts(m.dec)
+            back, t_dec, used_d = counted(torch, m.kernels, lambda: (
+                m.dec.decode(stream, config=DecodeConfig(mesh=mesh))))
+            add_launches(launches, used_d)
+            counts = dict(m.dec.COUNTS)
+            check(back == data, f"{c}: the decode over {k} x {device} did "
+                  f"not return the input")
+            check(all(used_d[n] > 0 for n in DECODE_KERNELS),
+                  f"{c}: a kernel was not launched by the decode over {k} x "
+                  f"{device}: {used_d}")
+            check(counts["host_decoded_blocks"]
+                  <= HOST_SHARE_MAX * sum(counts.values()),
+                  f"{c}: the decode over {k} x {device} walked too many "
+                  f"blocks on the host: {counts}")
+            bad = refs[c][:-1]
+            d = outcome(lambda: m.dec.decode(bad, config=DecodeConfig(
+                mesh=mesh)))
+            h = outcome(lambda: m.dec.decode(bad, use_device=False))
+            check(d == h and d != "no error", f"{c}: truncated stream over "
+                  f"{k} x {device}: {d}, host route {h}")
+            held = mesh_against_twins(torch, m, data, stream, k, errs)
+            print(f"parallel mesh {k} x {device} [{c}]: encode "
+                  f"{len(data) / t_enc / 1e9:.4f} GB/s ({t_enc:.3f} s; "
+                  f"launches { {n: used_e[n] for n in ENCODE_KERNELS} }; "
+                  f"wire-equal to the single-device stream and to hostref on "
+                  f"the first {B} blocks); decode "
+                  f"{len(back) / t_dec / 1e9:.4f} GB/s ({t_dec:.3f} s; "
+                  f"launches { {n: used_d[n] for n in DECODE_KERNELS} }; "
+                  f"blocks {counts}; equal to the input); truncated stream: "
+                  f"{d} on both routes; {held} equal to their twins "
+                  f"({card})", flush=True)
+            del stream, back
+
+    # The sharded stages against the unsharded ones on the kernel phase's
+    # batch and on the plans of its encoded prefix, exactly.
+    mesh = m.parallel.block_mesh([device] * 2)
+    W = m.enc._pack_params(N)
+    err = {"encode_sharded": 0, "decode_blocks_sharded": 0}
+    for c in CORPORA:
+        blocks, nv = kernel_batch(torch, streams[c])
+        want = m.dev.encode_blocks(blocks, nv, W)
+        got = m.parallel.encode_sharded(blocks.cpu().numpy(),
+                                        nv.cpu().numpy(), mesh,
+                                        words_per_block=W)
+        err["encode_sharded"] = max(
+            err["encode_sharded"],
+            *(max_abs_err(torch.from_numpy(g), w.cpu())
+              for g, w in zip(got, want)))
+        del blocks, nv, want, got
+        plans, _n_out = m.dec.build_device_plans(refs[c])
+        for p in plans:
+            want = m.tops.decode_blocks(
+                *m.dec.plan_tensors(p, torch.device(device)), p.NP, p.OUTW,
+                p.ns)
+            got = m.parallel.decode_blocks_sharded(
+                p.words, p.tables, p.n_sym, p.caps, p.NP, p.OUTW, p.ns, mesh)
+            err["decode_blocks_sharded"] = max(
+                err["decode_blocks_sharded"],
+                *(max_abs_err(torch.from_numpy(g), w.cpu())
+                  for g, w in zip(got, want)))
+            del want, got
+        check(not any(err.values()), f"{c}: a sharded stage disagrees with "
+              f"the unsharded one over 2 x {device} (max |err| {err})")
+        print(f"parallel stages [{c}]: encode_sharded on the {B}x{N} batch "
+              f"and decode_blocks_sharded on {len(plans)} plan(s) of its "
+              f"encoding over 2 x {device} equal encode_blocks and "
+              f"decode_blocks (max |err| {err}) ({card})", flush=True)
+        del plans
+
+
+def two_process_phase(data: bytes, single: bytes, card,
+                      device: str = "cuda:0") -> None:
+    """Two worker processes (tests/torch_multihost_worker.py, run by path)
+    on ``device``, rendezvoused over gloo, encode and decode ``data`` at
+    blocksize N: each rank's stream must be ``single`` (its sha256), the
+    sizes-only segments must lie at their offsets, the decode must return
+    the input on both ranks, and the bytes exchanged must stay within the
+    sizes-only bounds."""
+    import hashlib
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        path = os.path.join(tmp, "input.bin")
+        with open(path, "wb") as f:
+            f.write(data)
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, str(ROOT / "tests" / "torch_multihost_worker.py"),
+             f"file://{tmp}/rendezvous", "2", str(pid), tmp, device, path,
+             str(N)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for pid in range(2)]
+        try:
+            outs = [p.communicate(timeout=WORKER_TIMEOUT) for p in procs]
+        except subprocess.TimeoutExpired as e:
+            raise CheckFailed(f"a two-process worker ran past "
+                              f"{WORKER_TIMEOUT} s") from e
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        wall = time.perf_counter() - t0
+        for pid, (p, (_out, err)) in enumerate(zip(procs, outs)):
+            check(p.returncode == 0, f"two-process worker {pid} exited "
+                  f"{p.returncode}: {err[-2000:]}")
+        results = [json.loads(pathlib.Path(tmp, f"out_{pid}.json").read_text())
+                   for pid in range(2)]
+    sha = hashlib.sha256(single).hexdigest()
+    for pid, r in enumerate(results):
+        n = r["n_candidates"]
+        # The offset broadcast (two sizes and 8 B per candidate from each
+        # rank) and the tables (two sizes and 24 B per candidate of the
+        # larger rank's share from each rank).
+        bound = 16 + 16 * n + 16 + 2 * 24 * -(-n // 2)
+        check(r["stream_sha"] == sha and r["stream_len"] == len(single),
+              f"rank {pid}: the two-process stream differs from the "
+              f"single-process one")
+        check(r["seg_ok"] and r["seg_len"] > 0, f"rank {pid}: the sizes-only "
+              f"segment does not lie at its offset")
+        check(r["plain_ok"] and r["dseg_ok"] and r["dseg_len"] > 0,
+              f"rank {pid}: the two-process decode did not return the input")
+        check(r["dcn_sizes_only"] <= 64, f"rank {pid}: the sizes-only encode "
+              f"exchanged {r['dcn_sizes_only']} B")
+        check(r["dcn_decode_local"] <= bound, f"rank {pid}: the sizes-only "
+              f"decode exchanged {r['dcn_decode_local']} B, over {bound}")
+        walls = ", ".join(f"{k} {v:.3f} s ({len(data) / v / 1e9:.4f} GB/s)"
+                          for k, v in r["walls"].items())
+        print(f"two processes rank {pid} on {device}: stream sha256 equal to "
+              f"the single-process stream's, segment of {r['seg_len']} B at "
+              f"its offset, decode equal to the input (segment of "
+              f"{r['dseg_len']} B); exchanged {r['dcn_sizes_only']} B for the "
+              f"sizes-only encode, {r['dcn_decode_local']} B for the "
+              f"sizes-only decode ({n} candidates, bound {bound} B); walls "
+              f"{walls} ({card})", flush=True)
+    print(f"two-process phase: {wall:.1f} s for both workers, start-up "
+          f"(interpreter, torch, kernel library) and the gloo rendezvous "
+          f"included ({card})", flush=True)
+
+
 def add_launches(total: dict, used: dict) -> None:
     for k, v in used.items():
         total[k] += v
@@ -735,7 +998,7 @@ def main() -> int:
         return 2
     t_start = time.perf_counter()
     sys.path.insert(0, str(ROOT))
-    from libhuffman_tpu_torch import api, resume
+    from libhuffman_tpu_torch import api, config, parallel, resume
     from libhuffman_tpu_torch import decode as dec
     from libhuffman_tpu_torch import encode as enc
     from libhuffman_tpu_torch import native
@@ -1033,6 +1296,7 @@ def main() -> int:
 
     # ---- slice: the encode and decode paths end to end -----------------
     launches = {k: 0 for k in kernels.LAUNCHES}
+    singles, refs = {}, {}
     for c in CORPORA:
         data = streams[c]
         enc.COUNTS["host_reencoded_blocks"] = 0
@@ -1044,7 +1308,8 @@ def main() -> int:
               f"{c}: a kernel was not launched by the encode run: {used}")
         check(enc.COUNTS["host_reencoded_blocks"] == 0,
               f"{c}: blocks re-encoded on the host: {enc.COUNTS}")
-        ref = hostref.encode(data[:KERNEL_BYTES], N)
+        ref = refs[c] = hostref.encode(data[:KERNEL_BYTES], N)
+        singles[c] = stream
         check(stream[: len(ref)] == ref,
               f"{c}: wire bytes of the first {B} blocks differ from hostref")
         print(f"slice encode [{c}]: {len(data)} B -> {len(stream)} B (ratio "
@@ -1167,8 +1432,9 @@ def main() -> int:
         del stream, prefix, flipped, cases
 
     # ---- the API at 128 KiB blocks, and the blocksize sweep -------------
-    m = types.SimpleNamespace(api=api, dec=dec, dev=dev, enc=enc,
-                              hostref=hostref, kernels=kernels, resume=resume)
+    m = types.SimpleNamespace(api=api, config=config, dec=dec, dev=dev,
+                              enc=enc, hostref=hostref, kernels=kernels,
+                              parallel=parallel, resume=resume, tops=tops)
     # The host codec's reference encodings are made by worker processes
     # (numpy only; no torch, no card) while the card works.
     pool = ProcessPoolExecutor(max(1, min(7, (os.cpu_count() or 2) - 1)),
@@ -1182,6 +1448,10 @@ def main() -> int:
         print(f"sweep phase: {time.perf_counter() - t0:.1f} s", flush=True)
     finally:
         pool.shutdown(wait=True, cancel_futures=True)
+    t0 = time.perf_counter()
+    parallel_phase(torch, m, streams, singles, refs, launches, errs, card)
+    print(f"parallel phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    two_process_phase(streams["text"], singles["text"], card)
 
     sources = {"histogram": "histogram.cu", "symbol_layout": "layout.cu",
                "pack": "pack.cu", "resolve": "resolve.cu",

@@ -13,9 +13,12 @@ The public surface is the JAX package's: the bz2-style API
 (``compress``, ``decompress``, ``HuffmanCompressor``,
 ``HuffmanDecompressor``, ``HuffmanFile``, ``open``; each takes ``device``,
 "cuda" by default, "cpu" for the kernels' plain-torch twins), block-aligned
-resume (``resume``) and the tracing and timing hooks (``trace``).  Importing
-the package does no CUDA work and imports neither jax nor libhuffman_tpu;
-the api, encode, decode, resume and trace modules load on first use.
+resume (``resume``), the tracing and timing hooks (``trace``) and the
+block-parallel layer (``parallel``: the block axis split over a list of
+devices, ``parallel.shard``, or over processes, ``parallel.multihost``).
+Importing the package does no CUDA work and imports neither jax nor
+libhuffman_tpu; the api, encode, decode, parallel, resume and trace modules
+load on first use.
 Low-level entry points: ``libhuffman_tpu_torch.encode.encode(data,
 blocksize, device=...)`` and ``libhuffman_tpu_torch.decode.decode(stream,
 device=...)``.
@@ -48,8 +51,8 @@ _LAZY = {name: "api" for name in (
     "HuffmanFile", "HuffmanCompressor", "HuffmanDecompressor", "compress",
     "decompress", "open")}
 _SUBMODULES = {name: name for name in (
-    "api", "decode", "encode", "native", "ops", "resume", "symbols",
-    "utils")}
+    "api", "decode", "encode", "native", "ops", "parallel", "resume",
+    "symbols", "utils")}
 _SUBMODULES["trace"] = "utils.trace"
 
 __all__ = [

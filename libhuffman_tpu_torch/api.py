@@ -35,6 +35,7 @@ from .errors import HuffmanError, ReadWriteError
 from .format import (BLOCK_HEADER, DEFAULT_BLOCK_SIZE, DEFAULT_MEM_LIMIT,
                      parse_block_header)
 from .ops import hostref
+from .parallel.shard import resolve_device
 from .streams import MemStream
 
 __all__ = [
@@ -64,7 +65,7 @@ class HuffmanCompressor:
         if blocksize <= 0:
             raise ValueError("blocksize must be positive")
         self._blocksize = blocksize
-        self._device = _encode_mod.resolve_device(device)
+        self._device = resolve_device(device)
         self._flushed = False
         self._stream = MemStream()
 
@@ -107,7 +108,7 @@ class HuffmanDecompressor:
     """
 
     def __init__(self, memlimit: int = DEFAULT_MEM_LIMIT, device="cuda"):
-        self._device = _encode_mod.resolve_device(device)
+        self._device = resolve_device(device)
         # ``memlimit`` mirrors huf_config_t's reader/writer buffer sizing
         # (huffmanfile.py:375-376): a buffering hint, not an enforced cap -
         # the reference grows its membuf past it rather than erroring - so

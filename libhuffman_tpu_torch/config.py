@@ -12,6 +12,7 @@ the decode route and the torch device the kernels run on).
 from __future__ import annotations
 
 import dataclasses
+from typing import Any
 
 from .format import DEFAULT_BLOCK_SIZE, DEFAULT_MEM_LIMIT
 
@@ -26,9 +27,13 @@ class EncodeConfig:
         (src/encoder.c:163-165).
     reader_buffer_size / writer_buffer_size: host I/O buffering hints
         (0 = unbuffered, src/bufio.c:58-68); arrays make them advisory here.
-    batch_blocks: blocks per device batch.
+    batch_blocks: blocks per device batch (per device of ``mesh``).
     device: torch device the encode kernels run on ("cuda", "cuda:1", or
         "cpu" for the plain-torch twins).
+    mesh: a ``parallel.shard.BlockMesh`` whose devices share the block
+        axis: each batch is split into one contiguous row slice per device
+        (``parallel.shard.encode_stream_sharded``).  When set it overrides
+        ``device``; None runs on ``device`` alone.
     """
 
     length: int = 0
@@ -37,6 +42,7 @@ class EncodeConfig:
     writer_buffer_size: int = 0
     batch_blocks: int = 256
     device: str = "cuda"
+    mesh: Any = None
 
     def __post_init__(self):
         if self.length < 0 or self.blocksize < 0:
@@ -54,7 +60,8 @@ class DecodeConfig:
         past it rather than failing, so it is no cap).
     reader_buffer_size / writer_buffer_size: host I/O buffering hints, as
         in :class:`EncodeConfig`.
-    ``decode.decode`` reads only ``length``, ``use_device`` and ``device``:
+    ``decode.decode`` reads only ``length``, ``use_device``, ``device`` and
+    ``mesh``:
     ``memlimit`` and the two buffer sizes are kept so the class matches the
     JAX package's field for field, and have no effect on the decode.
     use_device: route eligible blocks through the decode kernels (the
@@ -62,6 +69,10 @@ class DecodeConfig:
         on the host.
     device: torch device the decode kernels run on ("cuda", "cuda:1", or
         "cpu" for the plain-torch twins).
+    mesh: a ``parallel.shard.BlockMesh``: the rows of every device plan
+        are split into one contiguous slice per device
+        (``parallel.shard.decode_plans_sharded``).  When set it overrides
+        ``device``; None runs on ``device`` alone.
     """
 
     length: int = 0
@@ -70,6 +81,7 @@ class DecodeConfig:
     writer_buffer_size: int = 0
     use_device: bool = True
     device: str = "cuda"
+    mesh: Any = None
 
     def __post_init__(self):
         if self.length < 0 or self.memlimit < 0:

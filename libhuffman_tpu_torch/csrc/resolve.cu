@@ -45,12 +45,15 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kTabCells = 13 * 128;
 constexpr int kMinSpan = 512;     // words per CTA at least: 32 KB of output
+constexpr int kMaxDevices = 64;   // cards whose CTA slots are cached
 constexpr uint32_t kDone = 1u << 15;
 constexpr uint32_t kDone2 = kDone | (kDone << 16);  // a cell of two DONEs
 // u16 entry index of each region of the table.
@@ -168,15 +171,21 @@ resolve_kernel(const uint32_t* __restrict__ words,
 template <int NS>
 int launch(const uint32_t* words, const uint32_t* tables, uint4* meta, int B,
            int W, cudaStream_t st) {
-  // CTAs the card holds at once (the SMs times the occupancy).
-  static int slots = 0;
+  // CTAs the current card holds at once (its SMs times the occupancy),
+  // found on each card's first launch: the cards of a mesh may differ.
+  static std::atomic<int> slots_of[kMaxDevices];
+  int dev = 0;
+  cudaGetDevice(&dev);
+  int slots = dev < kMaxDevices ? slots_of[dev].load(std::memory_order_relaxed)
+                                : 0;
   if (!slots) {
-    int dev = 0, sms = 0, per = 0;
-    cudaGetDevice(&dev);
+    int sms = 0, per = 0;
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per, resolve_kernel<NS>,
                                                   kThreads, 0);
     slots = sms * per > 0 ? sms * per : 1;
+    if (dev < kMaxDevices)
+      slots_of[dev].store(slots, std::memory_order_relaxed);
   }
   // Slices per block: the fewest waves of CTAs per slice, i.e. the least
   // time if every slice takes the same, among slices of >= kMinSpan words

@@ -8,10 +8,11 @@ chain.  The device route breaks the chain speculatively:
      bytes, tree length in range); true block starts always match, false
      positives only waste speculative work.
   2. The native runtime builds each candidate's resolve tables; eligible
-     candidates are batched into plans and decoded on the torch device
-     (``ops/decode.decode_blocks``: the resolve, chain and emission
-     kernels), each yielding its symbols, its consumed payload size and
-     its error flags.
+     candidates are batched into plans and decoded on the torch device, or
+     with each plan's rows split over the devices of a
+     ``parallel.shard.BlockMesh`` (``ops/decode.decode_blocks``: the
+     resolve, chain and emission kernels), each yielding its symbols, its
+     consumed payload size and its error flags.
   3. The true chain is resolved on the host by following consumed sizes
      from offset 0; a block the device did not decode (a missed candidate,
      a deep or crafted tree, a speculative cap that fell short) is walked
@@ -34,12 +35,12 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from .encode import resolve_device
 from .errors import BtreeCorruptedError, BtreeOverflowError, ReadWriteError
 from .format import find_candidate_headers, parse_block_header
 from . import native
-from .ops import decode as ddec
 from .ops import hostref
+from .parallel.shard import (BlockMesh, decode_plans_sharded,
+                             resolve_device, tensor_on)
 from .utils.trace import annotate
 
 # Bit positions per device plan (~32 MiB of payload): the resolve plane of
@@ -178,15 +179,16 @@ def _device_candidates(cands: list[_Candidate]):
 
 
 def _decode_candidates_device(data: np.ndarray, cands: list[_Candidate],
-                              device: torch.device):
-    """Speculatively decode the eligible candidates in plans on ``device``."""
+                              mesh: BlockMesh):
+    """Speculatively decode the eligible candidates in plans, each plan's
+    rows split over the devices of ``mesh``."""
     with annotate("huff.decode.tables"):
         eligible = _device_candidates(cands)
     with annotate("huff.decode.plans"):
-        plans = _build_plans(data, eligible)
+        plans = _build_plans(data, eligible, lane_mult=mesh.size)
     with annotate("huff.decode.device"):
-        for plan in plans:
-            _apply_plan_results(plan, *_run_plan(plan, device))
+        for plan, res in zip(plans, decode_plans_sharded(plans, mesh)):
+            _apply_plan_results(plan, *res)
 
 
 def _next_candidate_offsets(cands) -> dict[int, int]:
@@ -215,13 +217,16 @@ def _payload_cap(c: _Candidate, depth: int, next_off: int | None) -> int:
     return cap
 
 
-def _build_plans(data: np.ndarray, eligible) -> list[_Plan]:
+def _build_plans(data: np.ndarray, eligible, lane_mult: int = 1
+                 ) -> list[_Plan]:
     """Shape-homogeneous device plans from the eligible candidates.
 
     Sorted by (P bucket, stage count, cap).  Within a P bucket, whole
     128-block tiles of each stage count become their own near-equal plans,
     and the leftovers of every stage count pool into one mixed plan (its
-    NS is the largest), so no plan is mostly padding rows."""
+    NS is the largest), so no plan is mostly padding rows.  Each plan's
+    row count is a multiple of ``lane_mult`` (the mesh size), padded with
+    ``_pad_table`` rows."""
     eligible = sorted(eligible, key=lambda e: (_p_bucket(e[2] + 8), e[3], e[2]))
     batches = []
     i = 0
@@ -257,7 +262,7 @@ def _build_plans(data: np.ndarray, eligible) -> list[_Plan]:
 
     plans, offsets = [], []
     for P, batch in batches:
-        B = _b_bucket(len(batch))
+        B = -(-_b_bucket(len(batch)) // lane_mult) * lane_mult
         tables = np.tile(_pad_table(), (B, 1, 1))
         n_sym = np.ones(B, np.int32)
         offs = np.full(B, -1, np.int64)
@@ -286,30 +291,25 @@ def _build_plans(data: np.ndarray, eligible) -> list[_Plan]:
 
 def plan_tensors(p: _Plan, device: torch.device):
     """A plan's inputs on ``device``: (words, tables, n_sym, caps)."""
-    return tuple(torch.from_numpy(a.view(np.int32) if a.dtype == np.uint32
-                                  else a).to(device)
+    return tuple(tensor_on(a, device)
                  for a in (p.words, p.tables, p.n_sym, p.caps))
 
 
-def _run_plan(p: _Plan, device: torch.device):
-    """Decode one plan on ``device``; returns the host numpy results
-    (out, end_bit, corrupt, bad_bit)."""
-    out, end_bit, corrupt, bad_bit, _ovf = ddec.decode_blocks(
-        *plan_tensors(p, device), p.NP, p.OUTW, p.ns)
-    return (out.cpu().numpy(), end_bit.cpu().numpy(), corrupt.cpu().numpy(),
-            bad_bit.cpu().numpy())
-
-
 def scan_candidates(data, length: int | None = None,
-                    limit: int | None = None) -> list[_Candidate] | None:
+                    limit: int | None = None,
+                    offsets=None) -> list[_Candidate] | None:
     """All plausible block-header candidates of a stream, in offset order:
     one header scan plus a parse per candidate.  ``limit`` returns None on
-    a raw-offset explosion (crafted streams) before paying the parses."""
+    a raw-offset explosion (crafted streams) before paying the parses.
+    ``offsets`` skips the scan and parses the headers at those offsets
+    instead (``parallel/multihost.py``'s ranks reuse rank 0's scan)."""
     buf = np.frombuffer(data, np.uint8) if not isinstance(data, np.ndarray) \
         else data
     if length is None:
         length = len(buf)
-    if native.available():
+    if offsets is not None:
+        offs = np.asarray(offsets, np.int64)
+    elif native.available():
         offs = native.find_headers(buf[:length])
     else:
         offs = find_candidate_headers(buf[:length])
@@ -330,13 +330,14 @@ def scan_candidates(data, length: int | None = None,
     return cands
 
 
-def build_device_plans(enc: bytes):
+def build_device_plans(enc: bytes, lane_mult: int = 1):
     """The device plans of a whole stream, and the output bytes they cover:
     the decoder's host-side preparation (candidate scan, header parse,
-    native table build, eligibility, batching) without the decode."""
+    native table build, eligibility, batching) without the decode; each
+    plan's rows a multiple of ``lane_mult`` (the mesh size)."""
     buf = np.frombuffer(enc, np.uint8)
     eligible = _device_candidates(scan_candidates(buf))
-    return (_build_plans(buf, eligible),
+    return (_build_plans(buf, eligible, lane_mult),
             sum(c.n_sym for c, *_rest in eligible))
 
 
@@ -385,9 +386,9 @@ def _walk_block(buf: np.ndarray, mv: memoryview, off: int, length: int):
     return syms.tobytes(), hdr.payload_off + consumed
 
 
-def _chain(data: bytes, length: int, device: torch.device | None):
-    """Decode the block chain from offset 0 up to ``length``, on ``device``
-    where it can (None: every block on the host).
+def _chain(data: bytes, length: int, mesh: BlockMesh | None):
+    """Decode the block chain from offset 0 up to ``length``, on the devices
+    of ``mesh`` where it can (None: every block on the host).
 
     Returns (decoded bytes, end offset); raises on the first failing block
     in chain order.  ReadWriteError carries ``partial`` = (bytes decoded so
@@ -395,13 +396,13 @@ def _chain(data: bytes, length: int, device: torch.device | None):
     """
     buf = np.frombuffer(data, dtype=np.uint8)
     cand_map: dict[int, _Candidate] = {}
-    if device is not None and length > 0:
+    if mesh is not None and length > 0:
         with annotate("huff.decode.scan"):
             # Candidate explosions (crafted input) take the host walk.
             cands = scan_candidates(buf, length, limit=max(64, length // 64))
         if cands is not None:
             cand_map = {c.off: c for c in cands}
-            _decode_candidates_device(buf, cands, device)
+            _decode_candidates_device(buf, cands, mesh)
 
     out = []
     mv = memoryview(data)
@@ -440,20 +441,31 @@ def decode(data: bytes, length: int | None = None, use_device: bool = True,
     default raises when CUDA is absent.  ``use_device=False`` walks every
     block on the host.  A :class:`~libhuffman_tpu_torch.config.DecodeConfig`
     overrides these knobs: its ``use_device`` picks the route, its
-    ``device`` is where the kernels run, and a non-zero ``length`` caps the
-    bytes consumed."""
+    ``device`` is where the kernels run (its ``mesh``, when set, splits the
+    rows of every plan over the mesh's devices instead), and a non-zero
+    ``length`` caps the bytes consumed."""
+    mesh = None
     if config is not None:
         use_device = config.use_device
         device = config.device
+        mesh = config.mesh
         if config.length:
             length = config.length
-    dev = resolve_device(device) if use_device else None
+    mesh = _device_mesh(use_device, device, mesh)
     if length is None:
         length = len(data)
     if length == 0:
         return b""
-    out, _ = _chain(data, length, dev)
+    out, _ = _chain(data, length, mesh)
     return out
+
+
+def _device_mesh(use_device: bool, device, mesh=None) -> BlockMesh | None:
+    """The devices of the device route (None: the host route): ``mesh``,
+    else ``device`` alone."""
+    if not use_device:
+        return None
+    return mesh if mesh is not None else BlockMesh((resolve_device(device),))
 
 
 def decode_prefix(data: bytes, length: int | None = None,
@@ -464,12 +476,12 @@ def decode_prefix(data: bytes, length: int | None = None,
     A trailing incomplete block (short header, tree, or payload) stops the
     chain cleanly instead of raising.  Corruption errors still raise.
     """
-    dev = resolve_device(device) if use_device else None
+    mesh = _device_mesh(use_device, device)
     if length is None:
         length = len(data)
     if length == 0:
         return b"", 0
     try:
-        return _chain(data, length, dev)
+        return _chain(data, length, mesh)
     except ReadWriteError as e:
         return getattr(e, "partial", (b"", 0))

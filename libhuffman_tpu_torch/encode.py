@@ -2,9 +2,11 @@
 
 The stream is split into independent fixed-size blocks (the reference's
 block loop, src/encoder.c:288-374) and batched; each batch goes through
-``ops/device.encode_blocks`` on the chosen torch device (histogram, tree,
-codes, layout and pack), after which the host serializes the tree headers
-and assembles (header, tree, payload) per block with the native runtime.
+``ops/device.encode_blocks`` (histogram, tree, codes, layout and pack) on
+the chosen torch device, or with its rows split over the devices of a
+``parallel.shard.BlockMesh`` (one device is a mesh of one), after which
+the host serializes the tree headers and assembles (header, tree, payload)
+per block with the native runtime.
 Blocks the device path flags (codes over 32 bits, or a payload over the
 word budget: neither happens for real data below ~2 MB blocks) are
 re-encoded by the host-exact codec, so the output is bit-exact either way;
@@ -14,12 +16,12 @@ re-encoded by the host-exact codec, so the output is bit-exact either way;
 from __future__ import annotations
 
 import numpy as np
-import torch
 
-from .format import ArrayTree, DEFAULT_BLOCK_SIZE, pack_block, serialize_tree
-from . import native
+from .format import DEFAULT_BLOCK_SIZE
 from .ops import device as dev
 from .ops import hostref
+from .parallel.shard import (BlockMesh, assemble_stream, gather,
+                             resolve_device, run_slices)
 from .utils.trace import annotate
 
 # Blocks per device batch: 128 x 64 KiB = 8.4 MiB.
@@ -56,76 +58,26 @@ def _pack_params(N: int) -> int:
     return min(P, 24 * max(P // 64, 1))
 
 
-def resolve_device(device) -> torch.device:
-    """The torch device the kernels run on.  CUDA must be present unless
-    the caller asked for the CPU by name: there is no silent CPU route."""
-    d = torch.device(device)
-    if d.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "CUDA is not available; pass device='cpu' to run the "
-                "plain-torch twins of the kernels")
-    elif d.type != "cpu":
-        raise ValueError(f"unsupported device {d}")
-    return d
-
-
 def _encode_batch(batch: np.ndarray, n_valid: np.ndarray,
-                  device: torch.device) -> list[bytes]:
-    """Encode a (B, N) uint8 batch; returns per-block wire bytes."""
+                  mesh: BlockMesh) -> bytes:
+    """Encode a (B, N) uint8 batch, its rows split over ``mesh``; returns
+    the wire bytes of its blocks."""
     W = _pack_params(batch.shape[1])
     with annotate("huff.encode.device"):
-        blocks = torch.from_numpy(batch).to(device)
-        nv = torch.from_numpy(n_valid).to(device)
-        res = dev.encode_blocks(blocks, nv, W)
-    return _assemble_batch(batch, n_valid, res, W)
-
-
-def _assemble_batch(batch: np.ndarray, n_valid: np.ndarray, res,
-                    W: int) -> list[bytes]:
-    """Transfer + assemble one device batch's results into wire bytes."""
-    payload, total_bits, left, right, root, overflow = res
+        res = run_slices(lambda b, nv: dev.encode_blocks(b, nv, W),
+                         (batch, n_valid), mesh)
     with annotate("huff.encode.d2h"):
-        total_bits_h = total_bits.cpu().numpy()
-        overflow_h = overflow.cpu().numpy()
+        total_bits_h, overflow_h = gather([(r[1], r[5]) for r in res])
         # Transfer only a bucketed prefix of the padded payload buffer: the
         # worst-case row is 4W bytes but typical payloads are ~0.6N.
-        maxb = _bucket(max(1, (int(total_bits_h.max()) + 7) // 8), 1024)
-        payload_h = payload[:, : min(maxb, 4 * W)].cpu().numpy()
-        left_h = left.cpu().numpy()
-        right_h = right.cpu().numpy()
-        root_h = root.cpu().numpy()
-
-    trees = lens_t = None
-    if native.available():
-        trees, lens_t = native.serialize_trees(left_h, right_h, root_h)
-
-    if trees is not None and not overflow_h.any():
-        # Whole-batch native assembly (reference emit order,
-        # src/encoder.c:325-351); n_valid == 0 rows are padding, skipped.
-        with annotate("huff.encode.assemble"):
-            plens = (total_bits_h.astype(np.int64) + 7) // 8
-            return [native.assemble_blocks(
-                n_valid.astype(np.uint64), trees, lens_t, payload_h, plens)]
-
-    out = []
+        maxb = min(_bucket(max(1, (int(total_bits_h.max()) + 7) // 8), 1024),
+                   4 * W)
+        payload_h, left_h, right_h, root_h = gather(
+            [(r[0][:, :maxb], r[2], r[3], r[4]) for r in res])
     with annotate("huff.encode.assemble"):
-        for b in range(len(batch)):
-            nv = int(n_valid[b])
-            if nv == 0:
-                continue  # padding block
-            if overflow_h[b]:
-                COUNTS["host_reencoded_blocks"] += 1
-                out.append(hostref.encode_block(batch[b, :nv]))
-                continue
-            if trees is not None:
-                tree = trees[b, : lens_t[b]]
-            else:
-                tree = serialize_tree(
-                    ArrayTree(left_h[b], right_h[b], int(root_h[b])))
-            nbytes = (int(total_bits_h[b]) + 7) // 8
-            out.append(pack_block(nv, tree, payload_h[b, :nbytes].tobytes()))
-    return out
+        return assemble_stream(n_valid, total_bits_h, payload_h, left_h,
+                               right_h, root_h, overflow_h, batch,
+                               counts=COUNTS)
 
 
 def encode(
@@ -142,18 +94,31 @@ def encode(
     ``device`` is where the kernels run: a CUDA device, or "cpu" for the
     plain-torch twins; the default raises when CUDA is absent.  An
     :class:`~libhuffman_tpu_torch.config.EncodeConfig` overrides the
-    positional knobs and the device (config.length caps the input).
+    positional knobs and the device (config.length caps the input;
+    config.mesh splits every batch over its devices, as
+    ``parallel.shard.encode_stream_sharded`` does).
     """
     buf = (np.frombuffer(data, dtype=np.uint8)
            if isinstance(data, (bytes, bytearray, memoryview))
            else np.asarray(data, dtype=np.uint8))
+    mesh = None
     if config is not None:
         blocksize = config.blocksize
         batch_blocks = config.batch_blocks
         device = config.device
+        mesh = config.mesh
         if config.length:
             buf = buf[: config.length]
-    device = resolve_device(device)
+    if mesh is None:
+        mesh = BlockMesh((resolve_device(device),))
+    return encode_stream(buf, blocksize, batch_blocks, mesh)
+
+
+def encode_stream(buf: np.ndarray, blocksize: int, batch_blocks: int,
+                  mesh: BlockMesh) -> bytes:
+    """The stream's blocks in batches of ``batch_blocks`` blocks per device
+    of ``mesh`` (each batch's rows split over the mesh), joined in block
+    order."""
     n = len(buf)
     if n == 0:
         return b""
@@ -166,17 +131,26 @@ def encode(
         # host-exact encoder, block by block.
         return b"".join(hostref.encode_block(buf[off : off + blocksize])
                         for off in range(0, n, blocksize))
-    nblocks = -(-n // blocksize)
+    return b"".join(_encode_batch(batch, n_valid, mesh)
+                    for batch, n_valid in _batches(buf, blocksize,
+                                                   batch_blocks, mesh.size))
 
-    chunks: list[bytes] = []
-    for start in range(0, nblocks, batch_blocks):
-        nb = min(batch_blocks, nblocks - start)
-        batch = np.zeros((_bucket_blocks(nb), blocksize), dtype=np.uint8)
-        n_valid = np.zeros(len(batch), dtype=np.int32)
-        for i in range(nb):
-            off = (start + i) * blocksize
-            seg = buf[off : off + blocksize]
-            batch[i, : len(seg)] = seg
-            n_valid[i] = len(seg)
-        chunks.extend(_encode_batch(batch, n_valid, device))
-    return b"".join(chunks)
+
+def _batches(buf: np.ndarray, blocksize: int, batch_blocks: int, nd: int):
+    """The (batch, n_valid) pairs of ``encode_stream``: ``batch_blocks``
+    blocks per device of ``nd`` in each, the row count bucketed and a
+    multiple of ``nd`` (rows past the stream are empty blocks)."""
+    n = len(buf)
+    nblocks = -(-n // blocksize)
+    group = batch_blocks * nd
+    for start in range(0, nblocks, group):
+        nb = min(group, nblocks - start)
+        # Rows per device: the padded batch splits evenly over the mesh.
+        B = _bucket_blocks(-(-nb // nd)) * nd
+        batch = np.zeros((B, blocksize), dtype=np.uint8)
+        n_valid = np.zeros(B, dtype=np.int32)
+        seg = buf[start * blocksize : min(n, (start + nb) * blocksize)]
+        batch.reshape(-1)[: len(seg)] = seg
+        n_valid[:nb] = blocksize
+        n_valid[nb - 1] = len(seg) - (nb - 1) * blocksize
+        yield batch, n_valid

@@ -32,6 +32,7 @@ from . import native
 from .errors import BtreeCorruptedError, BtreeOverflowError, ReadWriteError
 from .format import DEFAULT_BLOCK_SIZE, parse_block_header
 from .ops import hostref
+from .parallel.shard import resolve_device
 
 
 def n_blocks(data_len: int, blocksize: int = DEFAULT_BLOCK_SIZE) -> int:
@@ -57,7 +58,7 @@ def encode_range(
     blocks are independent (per-block histogram, tree and padding,
     src/encoder.c:353-373).
     """
-    device = enc_mod.resolve_device(device)
+    device = resolve_device(device)
     buf = (
         np.frombuffer(data, dtype=np.uint8)
         if isinstance(data, (bytes, bytearray, memoryview))
@@ -117,7 +118,7 @@ def decode_from_block(
     payload lengths) but not materialized; the decode itself takes the
     device route on ``device``.
     """
-    device = enc_mod.resolve_device(device)
+    device = resolve_device(device)
     offs = block_offsets(stream, length)
     if start_block >= len(offs):
         return b""

@@ -29,6 +29,9 @@ def test_import_pulls_in_neither_jax_nor_the_jax_package():
         "import libhuffman_tpu_torch.ops.decode, libhuffman_tpu_torch.config\n"
         "import libhuffman_tpu_torch.resume, libhuffman_tpu_torch.symbols\n"
         "import libhuffman_tpu_torch.histogram\n"
+        "import libhuffman_tpu_torch.parallel\n"
+        "import libhuffman_tpu_torch.parallel.multihost\n"
+        "p.parallel.block_mesh, p.parallel.shard.encode_stream_sharded\n"
         "p.compress, p.HuffmanCompressor, p.EncodeConfig, p.DecodeConfig\n"
         "p.HuffmanDecompressor, p.HuffmanFile, p.open, p.decompress\n"
         "p.Histogram, p.describe_tree, p.node_to_string, p.resume, p.trace\n"
