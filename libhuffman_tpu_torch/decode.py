@@ -53,8 +53,11 @@ _POSITION_BUDGET = 1 << 28
 # block before it one byte short, so the host would walk it.
 _CAP_SLACK = 16
 
-# Blocks decoded by each route since the last reset (see module docstring).
-COUNTS = {"host_decoded_blocks": 0, "device_decoded_blocks": 0}
+# Since the last reset: blocks decoded by each route (see module
+# docstring), bytes copied back from the devices, and output bytes taken
+# from what was copied back.
+COUNTS = {"host_decoded_blocks": 0, "device_decoded_blocks": 0,
+          "decode_d2h_bytes": 0, "device_out_bytes": 0}
 
 
 def _bucket(n: int, lo: int) -> int:
@@ -188,6 +191,7 @@ def _decode_candidates_device(data: np.ndarray, cands: list[_Candidate],
         plans = _build_plans(data, eligible, lane_mult=mesh.size)
     with annotate("huff.decode.device"):
         for plan, res in zip(plans, decode_plans_sharded(plans, mesh)):
+            COUNTS["decode_d2h_bytes"] += sum(a.nbytes for a in res)
             _apply_plan_results(plan, *res)
 
 
@@ -418,6 +422,7 @@ def _chain(data: bytes, length: int, mesh: BlockMesh | None):
                     out.append(syms)
                     off = c.payload_off + consumed
                     COUNTS["device_decoded_blocks"] += 1
+                    COUNTS["device_out_bytes"] += len(syms)
                     continue
                 syms, off = _walk_block(buf, mv, off, length)
                 out.append(syms)

@@ -27,8 +27,11 @@ from .utils.trace import annotate
 # Blocks per device batch: 128 x 64 KiB = 8.4 MiB.
 DEFAULT_BATCH_BLOCKS = 128
 
-# Blocks re-encoded on the host since the last reset (see module docstring).
-COUNTS = {"host_reencoded_blocks": 0}
+# Since the last reset: blocks re-encoded on the host (see module
+# docstring), bytes copied back from the devices, and stream bytes written
+# from what was copied back.
+COUNTS = {"host_reencoded_blocks": 0, "encode_d2h_bytes": 0,
+          "stream_bytes": 0}
 
 
 def _bucket(n: int, lo: int) -> int:
@@ -74,10 +77,15 @@ def _encode_batch(batch: np.ndarray, n_valid: np.ndarray,
                    4 * W)
         payload_h, left_h, right_h, root_h = gather(
             [(r[0][:, :maxb], r[2], r[3], r[4]) for r in res])
+    COUNTS["encode_d2h_bytes"] += sum(
+        a.nbytes for a in (total_bits_h, overflow_h, payload_h, left_h,
+                           right_h, root_h))
     with annotate("huff.encode.assemble"):
-        return assemble_stream(n_valid, total_bits_h, payload_h, left_h,
-                               right_h, root_h, overflow_h, batch,
-                               counts=COUNTS)
+        out = assemble_stream(n_valid, total_bits_h, payload_h, left_h,
+                              right_h, root_h, overflow_h, batch,
+                              counts=COUNTS)
+    COUNTS["stream_bytes"] += len(out)
+    return out
 
 
 def encode(
@@ -131,9 +139,11 @@ def encode_stream(buf: np.ndarray, blocksize: int, batch_blocks: int,
         # host-exact encoder, block by block.
         return b"".join(hostref.encode_block(buf[off : off + blocksize])
                         for off in range(0, n, blocksize))
-    return b"".join(_encode_batch(batch, n_valid, mesh)
-                    for batch, n_valid in _batches(buf, blocksize,
-                                                   batch_blocks, mesh.size))
+    parts = [_encode_batch(batch, n_valid, mesh)
+             for batch, n_valid in _batches(buf, blocksize, batch_blocks,
+                                            mesh.size)]
+    with annotate("huff.encode.join"):
+        return b"".join(parts)
 
 
 def _batches(buf: np.ndarray, blocksize: int, batch_blocks: int, nd: int):
@@ -144,13 +154,15 @@ def _batches(buf: np.ndarray, blocksize: int, batch_blocks: int, nd: int):
     nblocks = -(-n // blocksize)
     group = batch_blocks * nd
     for start in range(0, nblocks, group):
-        nb = min(group, nblocks - start)
-        # Rows per device: the padded batch splits evenly over the mesh.
-        B = _bucket_blocks(-(-nb // nd)) * nd
-        batch = np.zeros((B, blocksize), dtype=np.uint8)
-        n_valid = np.zeros(B, dtype=np.int32)
-        seg = buf[start * blocksize : min(n, (start + nb) * blocksize)]
-        batch.reshape(-1)[: len(seg)] = seg
-        n_valid[:nb] = blocksize
-        n_valid[nb - 1] = len(seg) - (nb - 1) * blocksize
+        # The span closes before the yield, so it leaves out the consumer.
+        with annotate("huff.encode.batch"):
+            nb = min(group, nblocks - start)
+            # Rows per device: the padded batch splits evenly over the mesh.
+            B = _bucket_blocks(-(-nb // nd)) * nd
+            batch = np.zeros((B, blocksize), dtype=np.uint8)
+            n_valid = np.zeros(B, dtype=np.int32)
+            seg = buf[start * blocksize : min(n, (start + nb) * blocksize)]
+            batch.reshape(-1)[: len(seg)] = seg
+            n_valid[:nb] = blocksize
+            n_valid[nb - 1] = len(seg) - (nb - 1) * blocksize
         yield batch, n_valid

@@ -20,6 +20,7 @@ from __future__ import annotations
 import torch
 
 from ..format import ASCII_COUNT, HISTOGRAM_LEN
+from ..utils.trace import annotate
 from . import kernels
 
 MAX_CODE_BITS = 32  # device fast-path limit; deeper blocks are flagged
@@ -130,8 +131,9 @@ def encode_blocks(blocks: torch.Tensor, n_valid: torch.Tensor, W: int):
     longer than MAX_CODE_BITS, or a payload longer than W words.
     """
     freqs = kernels.histogram(blocks, n_valid)
-    left, right, parent, pbit, root = build_trees(freqs)
-    codes, lens, code_ovf = extract_codes(parent, pbit)
+    with annotate("huff.encode.trees"):
+        left, right, parent, pbit, root = build_trees(freqs)
+        codes, lens, code_ovf = extract_codes(parent, pbit)
     total_bits = (freqs[:, :ASCII_COUNT].long() * lens.long()).sum(dim=1)
     C, L = kernels.symbol_layout(blocks, as_u32_bits(codes), lens, n_valid)
     payload, pack_ovf = kernels.pack(C, L, W)

@@ -38,6 +38,13 @@ def one_torch_thread():
     torch.set_num_threads(n)
 
 
+def routes(counts: dict) -> dict:
+    """The block counts of each route in ``decode.COUNTS``, without its
+    byte counters."""
+    return {k: counts[k] for k in ("host_decoded_blocks",
+                                   "device_decoded_blocks")}
+
+
 def tensor(a) -> torch.Tensor:
     """numpy array (or anything ``np.asarray`` takes, e.g. a JAX array) ->
     CPU tensor of the same values; uint32 becomes its int32 bit pattern."""
