@@ -10,9 +10,9 @@ It builds the CUDA kernels from ``libhuffman_tpu_torch/csrc`` and then:
 
   1. prints the card's name and power limit (nvidia-smi) and the build
      times of the kernels and of the native host runtime;
-  2. encode kernel phase: holds each encode kernel (K1 histogram, K2
-     layout, K3 pack) against its plain-torch twin on the card at the
-     encode path's shapes (B = 128 blocks of N = 65536 bytes, W = 24576
+  2. encode kernel phase: holds each encode kernel (K1 histogram, K7
+     trees, K2 layout, K3 pack) against its plain-torch twin on the card at
+     the encode path's shapes (B = 128 blocks of N = 65536 bytes, W = 24576
      payload words, a ragged last row) for the first 8 MiB of the ``text``
      and ``mixed`` corpora (bench/corpora.py), exactly, and times the
      kernel, its twin and, for K1 and K2, the one PyTorch call that
@@ -23,6 +23,14 @@ It builds the CUDA kernels from ``libhuffman_tpu_torch/csrc`` and then:
      the text batch: a ``torch.sum`` that reads the blocks once, sums that
      read C and L once (each also on a float32 view of the same bytes),
      and a ``fill_`` of K3's payload;
+  2a. tree phase: K7 against its twin, every output exactly, on the
+     crafted rows of ``tree_edge_freqs`` (all 256 symbols at one rate,
+     Fibonacci rows with codes of 22, 32, 33 and 40 bits, the last two
+     flagged, five equal rates, one symbol, none) for B in {1, 3, 8,
+     513}, outputs poisoned first, and on the batches the benchmark's
+     encode gives it (1024 x 65536 and 512 x 131072 bytes of each
+     corpus), each timed beside its twin, its bytes bound and one row's
+     time (the round chain's latency);
   2b. encode edge phase: K1 and K3 against their twins, exactly, on
      crafted inputs from tests/torch_port_util.py, with the output
      buffers poisoned first: K1 on every kind of ``hist_edge_inputs``
@@ -79,8 +87,8 @@ It builds the CUDA kernels from ``libhuffman_tpu_torch/csrc`` and then:
      (``encode_range`` over three parts of the block range equal to the
      stream, 512 ``block_offsets``, ``decode_from_block(stream, 200,
      300)``); the launch counts are set to 0 before each call and read
-     after it, and each call's GB/s is printed; then K1-K3 against their
-     twins on one 128 x 131072 batch and K5, K6 and K4 on every device
+     after it, and each call's GB/s is printed; then K1-K3 and K7 against
+     their twins on one 128 x 131072 batch and K5, K6 and K4 on every device
      plan of the first 128 blocks, exactly, each with its device time
      beside its bytes bound, and the resident encode batch stage by stage;
   7. blocksize sweep: ``encode`` and ``decode`` at blocksizes 1 (4 KiB of
@@ -89,8 +97,9 @@ It builds the CUDA kernels from ``libhuffman_tpu_torch/csrc`` and then:
      processes), decoded equal to the input and to the host route; every
      encode kernel launched from blocksize 17 and every decode kernel at
      1024, 3072 and 5120; the launches and ``decode.COUNTS`` are printed;
-     wherever the encode launched K1-K3 (every blocksize here) they equal
-     their twins on one batch of the input in the shape encode gave them
+     wherever the encode launched K1-K3 and K7 (every blocksize here) they
+     equal their twins on one batch of the input in the shape encode gave
+     them
      (128 x blocksize, 1 x 1 MiB at 0), and wherever the decode launched
      K5, K6 and K4 (17 and up) they equal their twins on every device plan
      of the stream, exactly;
@@ -103,8 +112,8 @@ It builds the CUDA kernels from ``libhuffman_tpu_torch/csrc`` and then:
      stream and to the host-exact codec on the first B blocks, every
      kernel launched, the input back with at most 1% of blocks walked on
      the host, a truncated stream raising the host route's error class;
-     GB/s of each; K1-K3 against their twins on every row slice of every
-     batch that encode split over the mesh (256 x N, and 128 x N with
+     GB/s of each; K1-K3 and K7 against their twins on every row slice of
+     every batch that encode split over the mesh (256 x N, and 128 x N with
      empty rows in the last batch over 3), and K5, K6 and K4 on every row
      slice of every plan of the decode (``build_device_plans(lane_mult=k)``),
      exactly; then ``encode_sharded`` and ``decode_blocks_sharded``
@@ -118,7 +127,7 @@ It builds the CUDA kernels from ``libhuffman_tpu_torch/csrc`` and then:
      stream's sha256, the sizes-only segments lie at their offsets, the
      decode returns the input on both ranks, and the bytes exchanged stay
      within the sizes-only bounds; the wall of each step is printed;
-  8. prints the smoke's wall time, then one JSON line describing the six
+  8. prints the smoke's wall time, then one JSON line describing the seven
      kernels (launches summed over the slice, the API phase, the sweep and
      the parallel phase,
      max |err| over every phase, device time and the twin's time per 8 MiB
@@ -155,7 +164,7 @@ RAGGED = 40000           # valid bytes in the kernel batch's last row
 CORPORA = ("text", "mixed")
 HBM_BYTES_PER_MS = 3.35e9  # H100 SXM device memory: 3.35 TB/s
 HOST_SHARE_MAX = 0.01      # most blocks the decode slice may walk on the host
-ENCODE_KERNELS = ("histogram", "symbol_layout", "pack")
+ENCODE_KERNELS = ("histogram", "trees", "symbol_layout", "pack")
 DECODE_KERNELS = ("resolve", "chain", "emit")
 API_N = 131072             # the API's default blocksize (format.py)
 FILE_CHUNK = 1 << 20       # HuffmanFile write and read size in the API phase
@@ -212,28 +221,26 @@ def cuda_ms(torch, fn, reps: int, warmup: int = 2, busy: bool = True
     return statistics.median(times)
 
 
-def stage_ms(torch, dev, kernels, blocks, nv, W: int, reps: int = 5):
+def stage_ms(torch, kernels, blocks, nv, W: int, reps: int = 5):
     """Device time of each stage of ``encode_blocks`` with events between
     the stages of one pass: (median ms per stage, median pass total,
-    median share of build_trees in a pass), after one warm-up pass."""
-    names = ("histogram", "build_trees", "extract_codes", "symbol_layout",
-             "pack")
+    median share of the tree kernel in a pass), after one warm-up pass."""
+    names = ("histogram", "trees", "symbol_layout", "pack")
     rows = []
     for _ in range(reps + 1):
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
         ev[0].record()
         freqs = kernels.histogram(blocks, nv)
         ev[1].record()
-        _l, _r, parent, pbit, _root = dev.build_trees(freqs)
+        _l, _r, _root, codes, lens, _ovf, _bits = kernels.trees(
+            freqs, blocks.shape[1])
         ev[2].record()
-        codes, lens, _ovf = dev.extract_codes(parent, pbit)
+        C, L = kernels.symbol_layout(blocks, codes, lens, nv)
         ev[3].record()
-        C, L = kernels.symbol_layout(blocks, dev.as_u32_bits(codes), lens, nv)
-        ev[4].record()
         kernels.pack(C, L, W)
-        ev[5].record()
-        ev[5].synchronize()
-        rows.append([ev[i].elapsed_time(ev[i + 1]) for i in range(5)])
+        ev[4].record()
+        ev[4].synchronize()
+        rows.append([ev[i].elapsed_time(ev[i + 1]) for i in range(4)])
     rows = rows[1:]
     med = {n: statistics.median(r[i] for r in rows)
            for i, n in enumerate(names)}
@@ -378,20 +385,21 @@ def outcome(fn):
     return "no error"
 
 
-def encode_against_twins(torch, dev, kernels, blocks, nv, W: int):
-    """K1, K2 and K3 on a batch, and their twins on the same inputs: (max
-    |err| per kernel, the kernels' outputs and the code tables)."""
+def encode_against_twins(torch, kernels, blocks, nv, W: int):
+    """K1, K7, K2 and K3 on a batch, and their twins on the same inputs:
+    (max |err| per kernel, the kernels' outputs and the code tables)."""
     freqs = kernels.histogram(blocks, nv)
     freqs_p = kernels.histogram_plain(blocks, nv)
-    _l, _r, parent, pbit, _root = dev.build_trees(freqs)
-    codes, lens, _ovf = dev.extract_codes(parent, pbit)
-    codes = dev.as_u32_bits(codes)
+    trees = kernels.trees(freqs, blocks.shape[1])
+    trees_p = kernels.trees_plain(freqs)
+    codes, lens = trees[3], trees[4]
     C, L = kernels.symbol_layout(blocks, codes, lens, nv)
     Cp, Lp = kernels.symbol_layout_plain(blocks, codes, lens, nv)
     payload, ovf = kernels.pack(C, L, W)
     payload_p, ovf_p = kernels.pack_plain(C, L, W)
     torch.cuda.synchronize()
     errs = {"histogram": max_abs_err(freqs, freqs_p),
+            "trees": max(max_abs_err(a, b) for a, b in zip(trees, trees_p)),
             "symbol_layout": max(max_abs_err(C, Cp), max_abs_err(L, Lp)),
             "pack": max(max_abs_err(payload, payload_p),
                         max_abs_err(ovf, ovf_p))}
@@ -399,10 +407,18 @@ def encode_against_twins(torch, dev, kernels, blocks, nv, W: int):
                   "L": L, "payload": payload}
 
 
+def trees_bound_bytes(rows: int) -> int:
+    """Bytes K7 must move on ``rows`` histograms: the 256 counts of each
+    read once; left and right, codes and lens, root, overflow and
+    total_bits written once."""
+    return rows * (4 * 256 + 2 * 4 * 512 + 2 * 4 * 256 + 4 + 1 + 8)
+
+
 def encode_bound_bytes(n: int, W: int) -> dict:
     """Bytes each encode kernel must move on a B x n batch with W payload
     words per block: every input read once, every output written once."""
     return {"histogram": B * n + 4 * B + 4 * B * 512,
+            "trees": trees_bound_bytes(B),
             "symbol_layout": B * n + 2 * 4 * B * 256 + 4 * B + 2 * 4 * B * n,
             "pack": 2 * 4 * B * n + 4 * B * W + B}
 
@@ -431,11 +447,11 @@ def resident_encode(torch, dev, kernels, blocks, nv, W: int, tag: str,
     Bb, n = blocks.shape
     t_all = cuda_ms(torch, lambda: dev.encode_blocks(blocks, nv, W), 5,
                     busy=False)
-    stages, total, share = stage_ms(torch, dev, kernels, blocks, nv, W)
+    stages, total, share = stage_ms(torch, kernels, blocks, nv, W)
     print(f"{tag}: encode_blocks {t_all:.3f} ms per {Bb}x{n} batch = "
           f"{Bb * n / t_all / 1e6:.4f} GB/s; stages in one pass (median of "
           f"5) " + ", ".join(f"{k} {v:.4f}" for k, v in stages.items())
-          + f" ms, sum {total:.3f} ms; build_trees share "
+          + f" ms, sum {total:.3f} ms; trees share "
           f"{100 * share:.1f}% ({card})", flush=True)
 
 
@@ -461,10 +477,69 @@ def reference_pieces(data: bytes, bs: int, piece: int = 1 << 18):
     return [data[i : i + step] for i in range(0, len(data), step)]
 
 
+def trees_phase(torch, kernels, util, streams, errs, card) -> float:
+    """K7 against its twin, every output exactly, on the crafted rows of
+    ``util.TREE_EDGES`` (B in 1, 3, all of them, and 513 rows repeating
+    them; outputs poisoned first) and on the batches the benchmark's
+    encode gives it (1024 x 64 KiB and 512 x 128 KiB of each corpus);
+    prints K7's time per batch beside its twin's, its bytes bound and one
+    row's time (the round chain's latency, which bounds it).  Returns the
+    median one-row time in ms."""
+    import numpy as np
+
+    edges = util.tree_edge_freqs()
+    cases = 0
+    for Bc in (1, 3, len(edges), 513):
+        freqs = util.tensor(np.resize(edges, (Bc, 512))).cuda()
+        Nc = int(freqs.long().sum(dim=1).max())
+        want = kernels.trees_plain(freqs)
+        poison = [torch.full_like(w, -1) for w in want]
+        del poison
+        got = kernels.trees(freqs, Nc)
+        torch.cuda.synchronize()
+        err = max(max_abs_err(g, w) for g, w in zip(got, want))
+        errs["trees"] = max(errs["trees"], err)
+        check(err == 0, f"K7 edges B={Bc}: max |err| {err} against its twin")
+        cases += 1
+    print(f"K7 edge phase: {cases} batches of the {len(edges)} crafted rows "
+          f"({', '.join(util.TREE_EDGES)}) equal the twin exactly", flush=True)
+    one_row = []
+    for c in CORPORA:
+        for rows, n in ((1024, N), (512, API_N)):
+            blocks, nv = kernel_batch(torch, streams[c], last_row=n, n=n,
+                                      rows=rows)
+            freqs = kernels.histogram(blocks, nv)
+            del blocks, nv
+            want = kernels.trees_plain(freqs)
+            got = kernels.trees(freqs, n)
+            torch.cuda.synchronize()
+            err = max(max_abs_err(g, w) for g, w in zip(got, want))
+            errs["trees"] = max(errs["trees"], err)
+            check(err == 0, f"K7 [{c}] {rows}x{n}: max |err| {err}")
+            # The row with the most symbols has the longest round chain.
+            busiest = int((freqs[:, :256] > 0).sum(dim=1).argmax())
+            row = freqs[busiest : busiest + 1].contiguous()
+            symbols = int((row[0, :256] > 0).sum())
+            t_k = cuda_ms(torch, lambda: kernels.trees(freqs, n), reps=15)
+            t_paced = cuda_ms(torch, lambda: kernels.trees(freqs, n),
+                              reps=15, busy=False)
+            t_one = cuda_ms(torch, lambda: kernels.trees(row, n), reps=15)
+            t_twin = cuda_ms(torch, lambda: kernels.trees_plain(freqs),
+                             reps=3, warmup=1)
+            one_row.append(t_one)
+            print(f"K7 [{c}] {rows}x{n}: {t_k:.4f} ms per batch ({t_paced:.4f}"
+                  f" ms with its launch), one row of {symbols} symbols "
+                  f"{t_one:.4f} ms, twin {t_twin:.4f} ms, bytes bound "
+                  f"{trees_bound_bytes(rows) / HBM_BYTES_PER_MS:.4f} ms; "
+                  f"equal to the twin ({card})", flush=True)
+            del freqs, want, got, row
+    return statistics.median(one_row)
+
+
 def api_phase(torch, m, streams, launches, errs, card, pool):
     """The bz2-style API at its default blocksize: compress, decompress,
     HuffmanFile through open(), the incremental decompressor and resume on
-    SLICE_BYTES of each corpus, then K1-K6 against their twins at
+    SLICE_BYTES of each corpus, then K1-K7 against their twins at
     N = API_N."""
     import numpy as np
 
@@ -607,18 +682,18 @@ def api_phase(torch, m, streams, launches, errs, card, pool):
               f"{lo}, {hi}) equal to the input ({t_dec:.3f} s; launches "
               f"{used_d}) ({card})", flush=True)
 
-        # ---- K1-K6 against their twins at N = API_N, exact -------------
+        # ---- K1-K7 against their twins at N = API_N, exact -------------
         blocks, nv = kernel_batch(torch, data, n=API_N)
-        e, outs = encode_against_twins(torch, m.dev, m.kernels, blocks, nv,
-                                       Wa)
+        e, outs = encode_against_twins(torch, m.kernels, blocks, nv, Wa)
         C, L = outs["C"], outs["L"]
-        codes, lens = outs["codes"], outs["lens"]
+        freqs, codes, lens = outs["freqs"], outs["codes"], outs["lens"]
         del outs
         for k, v in e.items():
             errs[k] = max(errs[k], v)
         check(not any(e.values()), f"{c}: at N={API_N} an encode kernel "
               f"disagrees with its twin (max |err| {e})")
         runs = {"histogram": lambda: m.kernels.histogram(blocks, nv),
+                "trees": lambda: m.kernels.trees(freqs, API_N),
                 "symbol_layout": lambda: m.kernels.symbol_layout(
                     blocks, codes, lens, nv),
                 "pack": lambda: m.kernels.pack(C, L, Wa)}
@@ -630,7 +705,7 @@ def api_phase(torch, m, streams, launches, errs, card, pool):
                   f"W={Wa}; equal to its twin; {card})", flush=True)
         resident_encode(torch, m.dev, m.kernels, blocks, nv, Wa,
                         f"device-resident encode at N={API_N} [{c}]", card)
-        del blocks, nv, C, L, codes, lens, runs
+        del blocks, nv, C, L, freqs, codes, lens, runs
 
         plans, n_out = device_plans(torch, m.dec, stream[: offs[B]])
         check(n_out >= B * API_N, f"{c}: the plans of the first {B} blocks "
@@ -662,13 +737,13 @@ def api_phase(torch, m, streams, launches, errs, card, pool):
         del plans, stream, back, fed, parts, got
     print(f"api phase: compress, decompress, HuffmanFile, "
           f"HuffmanDecompressor and resume at blocksize {API_N} exact on "
-          f"both corpora; K1-K6 equal their twins at N={API_N}", flush=True)
+          f"both corpora; K1-K7 equal their twins at N={API_N}", flush=True)
 
 
 def sweep_phase(torch, m, streams, launches, errs, card, pool):
     """encode and decode at the blocksizes of SWEEP, wire-equal to the host
     codec and equal to the input and the host route; at each blocksize
-    whose encode launched K1-K3, those kernels on one batch of the input
+    whose encode launched K1-K3 and K7, those kernels on one batch of the input
     in the shape encode gave them, and at each whose decode launched K5,
     K6 and K4, those kernels on every device plan of the stream, each
     equal to its twin."""
@@ -712,13 +787,12 @@ def sweep_phase(torch, m, streams, launches, errs, card, pool):
                     torch, data, last_row=max(1, 2 * n_blk // 3), n=n_blk,
                     rows=rows)
                 e, _outs = encode_against_twins(
-                    torch, m.dev, m.kernels, blocks, nv,
-                    m.enc._pack_params(n_blk))
+                    torch, m.kernels, blocks, nv, m.enc._pack_params(n_blk))
                 for k, v in e.items():
                     errs[k] = max(errs[k], v)
                 check(not any(e.values()), f"{c}: at N={n_blk} an encode "
                       f"kernel disagrees with its twin (max |err| {e})")
-                held.append(f"K1-K3 on a {rows}x{n_blk} batch")
+                held.append(f"K1-K3 and K7 on a {rows}x{n_blk} batch")
                 del blocks, nv, _outs
             if all(dec_used.values()):
                 plans, _n_out = device_plans(torch, m.dec, stream)
@@ -746,10 +820,11 @@ def sweep_phase(torch, m, streams, launches, errs, card, pool):
 
 def mesh_against_twins(torch, m, data: bytes, stream: bytes, k: int,
                        errs: dict) -> str:
-    """K1-K3 on every row slice that the encode of ``data`` over a mesh of
-    ``k`` devices gives them, and K5, K6 and K4 on every row slice of the
-    plans that the decode of ``stream`` over it gives them, each against
-    its twin; the errors fold into ``errs``.  Returns what was held."""
+    """K1-K3 and K7 on every row slice that the encode of ``data`` over a
+    mesh of ``k`` devices gives them, and K5, K6 and K4 on every row slice
+    of the plans that the decode of ``stream`` over it gives them, each
+    against its twin; the errors fold into ``errs``.  Returns what was
+    held."""
     import numpy as np
 
     W = m.enc._pack_params(N)
@@ -762,8 +837,7 @@ def mesh_against_twins(torch, m, data: bytes, stream: bytes, k: int,
             rows = slice(i * per, (i + 1) * per)
             blocks, nv = (m.parallel.shard.tensor_on(a[rows], "cuda")
                           for a in (batch, n_valid))
-            e, _outs = encode_against_twins(torch, m.dev, m.kernels, blocks,
-                                            nv, W)
+            e, _outs = encode_against_twins(torch, m.kernels, blocks, nv, W)
             for n, v in e.items():
                 errs[n] = max(errs[n], v)
             check(not any(e.values()), f"over {k} devices an encode kernel "
@@ -790,7 +864,8 @@ def mesh_against_twins(torch, m, data: bytes, stream: bytes, k: int,
                   f"{len(p.words)}-row plan (max |err| {e})")
             dec_shapes.append(per)
             del on_card, _outs
-    return (f"K1-K3 on {len(enc_shapes)} slices ({', '.join(enc_shapes)}), "
+    return (f"K1-K3 and K7 on {len(enc_shapes)} slices "
+            f"({', '.join(enc_shapes)}), "
             f"K5, K6 and K4 on {len(dec_shapes)} slices of {len(plans)} "
             f"plans ({min(dec_shapes)}-{max(dec_shapes)} rows each)")
 
@@ -1040,7 +1115,7 @@ def main() -> int:
     library_ms = {"histogram": [], "symbol_layout": []}
     for c in CORPORA:
         blocks, nv = kernel_batch(torch, streams[c])
-        e, outs = encode_against_twins(torch, dev, kernels, blocks, nv, W)
+        e, outs = encode_against_twins(torch, kernels, blocks, nv, W)
         for k, v in e.items():
             errs[k] = max(errs[k], v)
         freqs, codes, lens, C, L, payload = (
@@ -1052,6 +1127,8 @@ def main() -> int:
         runs = {
             "histogram": (lambda: kernels.histogram(blocks, nv),
                           lambda: kernels.histogram_plain(blocks, nv)),
+            "trees": (lambda: kernels.trees(freqs, N),
+                      lambda: kernels.trees_plain(freqs)),
             "symbol_layout": (
                 lambda: kernels.symbol_layout(blocks, codes, lens, nv),
                 lambda: kernels.symbol_layout_plain(blocks, codes, lens, nv)),
@@ -1106,11 +1183,12 @@ def main() -> int:
             del f32
         del blocks, nv, freqs, codes, lens, C, L, payload
         del idx, table, gidx, library
-    for k in ("histogram", "symbol_layout", "pack"):
+    for k in ENCODE_KERNELS:
         check(errs[k] == 0,
               f"kernel {k} disagrees with its twin (max |err| {errs[k]})")
-    print("kernel phase: K1-K3 equal their twins exactly on both corpora",
-          flush=True)
+    print("kernel phase: K1, K7, K2 and K3 equal their twins exactly on both "
+          "corpora", flush=True)
+    one_row_ms = trees_phase(torch, kernels, util, streams, errs, card)
 
     # ---- K1 and K3 edge phase: crafted inputs against the twins, exact -
     t0 = time.perf_counter()
@@ -1453,10 +1531,13 @@ def main() -> int:
     print(f"parallel phase: {time.perf_counter() - t0:.1f} s", flush=True)
     two_process_phase(streams["text"], singles["text"], card)
 
-    sources = {"histogram": "histogram.cu", "symbol_layout": "layout.cu",
+    sources = {"histogram": "histogram.cu", "trees": "trees.cu",
+               "symbol_layout": "layout.cu",
                "pack": "pack.cu", "resolve": "resolve.cu",
                "chain": "chain.cu", "emit": "emit.cu"}
     replaces = {"histogram": "libhuffman_tpu/ops/device.py:145",
+                "trees": "none (libhuffman_tpu/ops/device.py:187 and :264 "
+                         "build their trees in XLA)",
                 "symbol_layout": "libhuffman_tpu/ops/device.py:360",
                 "pack": "libhuffman_tpu/ops/concat_kernel.py:274",
                 "resolve": "libhuffman_tpu/ops/decode_v3.py:212",
@@ -1471,9 +1552,11 @@ def main() -> int:
          "max_abs_err": errs[k], "ms": statistics.median(ms[k]),
          "plain_ms": statistics.median(plain_ms[k]),
          "bound_ms": statistics.median(bound_bytes[k]) / HBM_BYTES_PER_MS,
-         "bound_by": "bytes",
+         # K7 is bound by its round chain: one row's time on the card.
+         "bound_by": "bytes" if k != "trees" else "latency",
+         **({"one_row_ms": one_row_ms} if k == "trees" else {}),
          # K1: torch.bincount, K2: torch.gather (see the kernel phase); no
-         # single PyTorch call computes the other four.
+         # single PyTorch call computes the other five.
          "library_ms": (statistics.median(library_ms[k])
                         if k in library_ms else None)}
         for k in sources]}), flush=True)

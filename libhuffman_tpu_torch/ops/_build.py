@@ -118,8 +118,10 @@ def library() -> ctypes.CDLL:
     lib.huff_chain_scratch_words.argtypes = [i, i]
     lib.huff_chain_scratch_words.restype = ctypes.c_longlong
     lib.huff_emit.argtypes = [p, p, p, p, p, i, i, i, p]
+    lib.huff_trees.argtypes = [p, p, p, p, p, p, p, p, i, p]
     for fn in (lib.huff_histogram, lib.huff_layout, lib.huff_pack,
-               lib.huff_resolve, lib.huff_chain, lib.huff_emit):
+               lib.huff_resolve, lib.huff_chain, lib.huff_emit,
+               lib.huff_trees):
         fn.restype = ctypes.c_int
     lib.huff_error_string.argtypes = [i]
     lib.huff_error_string.restype = ctypes.c_char_p

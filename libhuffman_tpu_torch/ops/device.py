@@ -6,13 +6,14 @@ are zero-padded and masked by ``n_valid``.  The stages of
 :func:`encode_blocks`:
 
   * histogram      - K1, a CUDA kernel (ops/kernels.histogram);
-  * build_trees    - 256-round masked two-minimum merge in plain torch, the
-                     reference's exact tie-break (src/tree.c:318-414);
-  * extract_codes  - a 32-step leaf-to-root walk with ``torch.gather``;
+  * trees          - K7, a CUDA kernel: every row's merge rounds, with the
+                     reference's exact tie-break (src/tree.c:318-414), and
+                     its leaf-to-root codeword walk;
   * symbol_layout  - K2, a CUDA kernel;
   * pack           - K3, a CUDA kernel that also writes the payload bytes.
 
-On CPU tensors the kernels' plain-torch twins run instead (ops/kernels.py).
+On CPU tensors the kernels' plain-torch twins run instead (ops/kernels.py);
+K7's twin is :func:`build_trees` followed by :func:`extract_codes`.
 """
 
 from __future__ import annotations
@@ -26,11 +27,6 @@ from . import kernels
 MAX_CODE_BITS = 32  # device fast-path limit; deeper blocks are flagged
 _BIG = 1 << 62
 _DUMP = HISTOGRAM_LEN  # extra column that swallows the writes of idle rows
-
-
-def as_u32_bits(x: torch.Tensor) -> torch.Tensor:
-    """int64 values in [0, 2^32) -> int32 tensor holding their bit pattern."""
-    return torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32)
 
 
 def build_trees(freqs: torch.Tensor):
@@ -132,9 +128,8 @@ def encode_blocks(blocks: torch.Tensor, n_valid: torch.Tensor, W: int):
     """
     freqs = kernels.histogram(blocks, n_valid)
     with annotate("huff.encode.trees"):
-        left, right, parent, pbit, root = build_trees(freqs)
-        codes, lens, code_ovf = extract_codes(parent, pbit)
-    total_bits = (freqs[:, :ASCII_COUNT].long() * lens.long()).sum(dim=1)
-    C, L = kernels.symbol_layout(blocks, as_u32_bits(codes), lens, n_valid)
+        left, right, root, codes, lens, code_ovf, total_bits = kernels.trees(
+            freqs, blocks.shape[1])
+    C, L = kernels.symbol_layout(blocks, codes, lens, n_valid)
     payload, pack_ovf = kernels.pack(C, L, W)
     return payload, total_bits, left, right, root, code_ovf | pack_ovf

@@ -18,6 +18,7 @@ widen them to int64 where they do arithmetic.
 
   kernel          replaces (libhuffman_tpu)                     source
   histogram       ops/device.py:145 histogram_pallas            csrc/histogram.cu
+  trees           none (ops/device.py:187 and :264, in XLA)     csrc/trees.cu
   symbol_layout   ops/device.py:360 symbol_layout_pallas        csrc/layout.cu
   pack            ops/concat_kernel.py:274 concat_words_ovf     csrc/pack.cu
   resolve         ops/decode_v3.py:212 resolve_blocks           csrc/resolve.cu
@@ -37,8 +38,8 @@ from ..native import TAB_ROWS
 from . import _build
 
 # Kernel launches per wrapper since the last reset_launches().
-LAUNCHES = {"histogram": 0, "symbol_layout": 0, "pack": 0, "resolve": 0,
-            "chain": 0, "emit": 0}
+LAUNCHES = {"histogram": 0, "trees": 0, "symbol_layout": 0, "pack": 0,
+            "resolve": 0, "chain": 0, "emit": 0}
 
 
 def reset_launches() -> None:
@@ -114,6 +115,63 @@ def histogram_plain(blocks: torch.Tensor, n_valid: torch.Tensor
     out = torch.zeros((B, HISTOGRAM_LEN), dtype=torch.int32, device=dev)
     out[:, :ASCII_COUNT] = counts[: B * ASCII_COUNT].view(B, ASCII_COUNT)
     return out
+
+
+# --------------------------------------------------------------------------
+# K7 trees
+# --------------------------------------------------------------------------
+
+TREES_MAX_N = (1 << 31) - 1  # every rate of a row fits in an int32
+
+
+def trees(freqs: torch.Tensor, N: int):
+    """Each row's Huffman tree and codewords, the reference's tie-break.
+
+    freqs (B, 512) int32 from :func:`histogram` (slots 256..511 zero) of
+    blocks of N bytes, so each row sums to at most N; N <= TREES_MAX_N ->
+    (left, right (B, 512) int32, root (B,) int32 (-1 for an all-zero row),
+    codes (B, 256) int32 (u32 bit pattern of the MSB-first codeword),
+    lens (B, 256) int32, overflow (B,) bool (a code over 32 bits, cut
+    there), total_bits (B,) int64 = the sum of freq x len).  The twin is
+    ``ops/device.build_trees`` and ``extract_codes``; the kernel runs every
+    row's rounds to its own end and reads nothing back to the host."""
+    if freqs.dim() != 2:
+        raise ValueError("freqs must be (B, 512)")
+    B = freqs.shape[0]
+    dev = freqs.device
+    _check(freqs, "freqs", torch.int32, (B, HISTOGRAM_LEN), dev)
+    if not 0 <= N <= TREES_MAX_N:
+        raise ValueError(f"N must be in [0, {TREES_MAX_N}], got {N}")
+    if not _on_cuda(freqs):
+        return trees_plain(freqs)
+    i32 = torch.int32
+    left = torch.empty((B, HISTOGRAM_LEN), dtype=i32, device=dev)
+    right = torch.empty((B, HISTOGRAM_LEN), dtype=i32, device=dev)
+    root = torch.empty((B,), dtype=i32, device=dev)
+    codes = torch.empty((B, ASCII_COUNT), dtype=i32, device=dev)
+    lens = torch.empty((B, ASCII_COUNT), dtype=i32, device=dev)
+    ovf = torch.empty((B,), dtype=torch.bool, device=dev)
+    total_bits = torch.empty((B,), dtype=torch.int64, device=dev)
+    out = (left, right, root, codes, lens, ovf, total_bits)
+    if B == 0:
+        return out
+    with torch.cuda.device(dev):
+        err = _build.library().huff_trees(
+            freqs.data_ptr(), *(t.data_ptr() for t in out), B, _stream(dev))
+    _build.check(err, "trees")
+    LAUNCHES["trees"] += 1
+    return out
+
+
+def trees_plain(freqs: torch.Tensor):
+    """Twin of :func:`trees`: the merge rounds and the walk in plain torch
+    (``ops/device.build_trees``, ``extract_codes``)."""
+    from .device import build_trees, extract_codes  # device imports us
+
+    left, right, parent, pbit, root = build_trees(freqs)
+    codes, lens, ovf = extract_codes(parent, pbit)
+    total_bits = (freqs[:, :ASCII_COUNT].long() * lens.long()).sum(dim=1)
+    return left, right, root, _as_i32(codes), lens, ovf, total_bits
 
 
 # --------------------------------------------------------------------------

@@ -12,10 +12,9 @@ host.
 :func:`run_slices` copies every slice's inputs to its device, then launches
 every slice, and copies nothing back: the caller's first ``.cpu()`` comes
 after the last launch, so work queued on one card runs while the host
-launches the next card's slice.  (The encode's ``build_trees`` reads its
-round count on the host, which waits for that slice's histogram.)  One card
-listed twice runs its slices one after the other on its stream; that is
-how a one-card machine exercises the split.
+launches the next card's slice.  One card listed twice runs its slices one
+after the other on its stream; that is how a one-card machine exercises the
+split.
 
 The single-device encode and decode run through here as well, with a mesh
 of one device, so the split is the only difference between the routes.

@@ -2,11 +2,12 @@
 
 Each kernel's plain-torch twin (the route a CPU tensor takes) is held
 against the Pallas function it replaces, run on the CPU in interpret mode as
-the JAX package's own tests run it; ``build_trees``/``extract_codes`` are
-held against their JAX counterparts.  Integer outputs, compared exactly.
-The tests marked ``cuda`` hold each CUDA kernel against its twin on the
-card and skip without one; they need no JAX, so the JAX side is imported by
-the ``jx`` fixture of the tests that use it.
+the JAX package's own tests run it; ``build_trees``/``extract_codes``, the
+twin of the trees kernel, are held against their JAX counterparts.
+Integer outputs, compared exactly.  The tests marked ``cuda`` hold each
+CUDA kernel against its twin on the card and skip without one; they need
+no JAX, so the JAX side is imported by the ``jx`` fixture of the tests
+that use it.
 """
 
 from types import SimpleNamespace
@@ -18,9 +19,10 @@ import torch
 from libhuffman_tpu_torch.ops import device as tdev
 from libhuffman_tpu_torch.ops import hostref, kernels
 from torch_port_util import one_torch_thread  # noqa: F401
-from torch_port_util import (HIST_EDGES, PACK_EDGES, batch, be_bytes,
+from torch_port_util import (HIST_EDGES, PACK_EDGES, TREE_EDGES, batch,
+                             be_bytes, corpora, corpus_freqs, fib_freqs,
                              hist_edge_inputs, left_align, pack_edge_inputs,
-                             tensor, u32)
+                             tensor, tree_edge_freqs, u32)
 
 
 @pytest.fixture(scope="module")
@@ -145,25 +147,23 @@ def test_pack_twin_matches_concat_kernel_on_edges(jx, kind):
     np.testing.assert_array_equal(ovf, total > 32 * W)
 
 
-def _fib_freqs(n):
-    counts = [1, 1]
-    while len(counts) < n:
-        counts.append(counts[-1] + counts[-2])
-    f = np.zeros(512, np.int32)
-    f[:n] = counts
-    return f
-
-
-def test_build_trees_and_extract_codes_match_jax(jx):
+def _tree_cases(jx):
+    """Histograms of real blocks (the last one empty), five equal rates
+    (the tie-break decides), one symbol, Fibonacci 40 (deeper than 32
+    bits) and 22."""
     rng = np.random.default_rng(5)
     x, nv = batch(rng, 4, 4096, [4096, 4096, 333, 0])
     freqs = np.asarray(jx.dev.histogram_pallas(jx.a(x), jx.a(nv)))
     ties = np.zeros(512, np.int32)
-    ties[[3, 9, 200, 201, 255]] = 5  # equal rates: the tie-break decides
+    ties[[3, 9, 200, 201, 255]] = 5
     single = np.zeros(512, np.int32)
     single[65] = 10
-    freqs = np.concatenate([freqs, ties[None], single[None],
-                            _fib_freqs(40)[None], _fib_freqs(22)[None]])
+    return np.concatenate([freqs, ties[None], single[None],
+                           fib_freqs(40)[None], fib_freqs(22)[None]])
+
+
+def test_build_trees_and_extract_codes_match_jax(jx):
+    freqs = _tree_cases(jx)
     want = jx.dev.build_trees(jx.a(freqs))
     got = tdev.build_trees(tensor(freqs))
     for name, w, g in zip(("left", "right", "parent", "pbit", "root"),
@@ -177,6 +177,43 @@ def test_build_trees_and_extract_codes_match_jax(jx):
     # Fib(40) is deeper than 32 bits: flagged for the host; Fib(22) is not.
     assert tovf.tolist()[-2:] == [True, False]
     assert not tovf[:-2].any()
+
+
+def test_trees_twin_matches_jax(jx):
+    """``kernels.trees`` on CPU tensors (its twin) against the JAX
+    package's tree build and walk, every output; total_bits is freq x len
+    summed."""
+    freqs = _tree_cases(jx)
+    left, right, parent, pbit, root = jx.dev.build_trees(jx.a(freqs))
+    codes, lens, ovf = jx.dev.extract_codes(parent, pbit)
+    lens = np.asarray(lens)
+    total = (freqs[:, :256].astype(np.int64) * lens).sum(axis=1)
+    want = (left, right, root, codes, lens, ovf, total)
+    got = kernels.trees(tensor(freqs), int(freqs.sum(axis=1).max()))
+    names = ("left", "right", "root", "codes", "lens", "overflow",
+             "total_bits")
+    for name, w, g in zip(names, want, got):
+        g = u32(g) if name == "codes" else g.numpy()
+        np.testing.assert_array_equal(g, np.asarray(w), err_msg=name)
+    assert got[6].dtype == torch.int64 and got[5].dtype == torch.bool
+    assert got[5].tolist() == [False] * 6 + [True, False]
+    assert got[2].tolist()[3] == -1  # the empty block
+
+
+@pytest.mark.parametrize("case", ["dtype", "shape", "strided", "N"])
+def test_trees_wrapper_rejects_what_the_kernel_does_not_take(case):
+    f = torch.zeros((2, 512), dtype=torch.int32)
+    bad = {"dtype": (f.long(), 64, TypeError),
+           "shape": (f[:, :256].contiguous(), 64, ValueError),
+           "strided": (torch.zeros((512, 2), dtype=torch.int32).t(), 64,
+                       ValueError),
+           "N": (f, kernels.TREES_MAX_N + 1, ValueError)}
+    freqs, N, err = bad[case]
+    with pytest.raises(err):
+        kernels.trees(freqs, N)
+    if case == "N":
+        with pytest.raises(ValueError):
+            kernels.trees(f, -1)
 
 
 # --------------------------------------------------------------------------
@@ -202,9 +239,7 @@ def test_cuda_histogram_and_layout_match_twins(cuda, N):
     blocks, nv = _cuda_batch(cuda, 6, N)
     freqs = kernels.histogram(blocks, nv)
     assert torch.equal(freqs, kernels.histogram_plain(blocks, nv))
-    _l, _r, parent, pbit, _root = tdev.build_trees(freqs)
-    codes, lens, _ovf = tdev.extract_codes(parent, pbit)
-    codes = tdev.as_u32_bits(codes)
+    _l, _r, _root, codes, lens, _ovf, _bits = kernels.trees(freqs, N)
     C, L = kernels.symbol_layout(blocks, codes, lens, nv)
     Cp, Lp = kernels.symbol_layout_plain(blocks, codes, lens, nv)
     assert torch.equal(C, Cp) and torch.equal(L, Lp)
@@ -222,7 +257,7 @@ def test_cuda_pack_matches_twin(cuda, N, W):
     L[1] = L[1] % 9
     raw = torch.randint(0, 1 << 32, (4, N), device=cuda, dtype=torch.int64,
                         generator=g)
-    C = tdev.as_u32_bits(raw & ((1 << L.long()) - 1))
+    C = kernels._as_i32(raw & ((1 << L.long()) - 1))
     payload, ovf = kernels.pack(C, L, W)
     payload_p, ovf_p = kernels.pack_plain(C, L, W)
     assert torch.equal(payload, payload_p) and torch.equal(ovf, ovf_p)
@@ -259,3 +294,59 @@ def test_cuda_histogram_edges_match_twin(cuda, kind, N, offset):
     poison = torch.full_like(want, -1)
     del poison
     assert torch.equal(kernels.histogram(blocks, nv), want)
+
+
+def _trees_input(B: int) -> np.ndarray:
+    """B histogram rows: the crafted rows of ``TREE_EDGES`` (B = 1: the
+    256-round row), then rows of 64 KiB and 128 KiB blocks of both corpus
+    families, repeated, and 16 all-zero rows of padding last."""
+    edges = tree_edge_freqs()
+    if B <= len(edges):
+        return edges[:B]
+    real = corpus_freqs(4 << 20)
+    fill = np.resize(real, (B - len(edges) - 16, 512))
+    return np.concatenate([edges, fill, np.zeros((16, 512), np.int32)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 7, len(TREE_EDGES), 1024])
+def test_cuda_trees_match_twin(cuda, B):
+    """K7 against its twin, every output exactly, outputs poisoned first:
+    the kernel must write every word."""
+    freqs = tensor(_trees_input(B)).to(cuda)
+    N = int(freqs.long().sum(dim=1).max())
+    want = kernels.trees_plain(freqs)
+    poison = [torch.full_like(w, -1) for w in want]
+    del poison
+    kernels.reset_launches()
+    got = kernels.trees(freqs, N)
+    assert kernels.LAUNCHES["trees"] == 1
+    names = ("left", "right", "root", "codes", "lens", "overflow",
+             "total_bits")
+    for name, g, w in zip(names, got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w), name
+    if B >= len(TREE_EDGES):  # the Fibonacci 33 and 40 rows overflow
+        assert got[5][:len(TREE_EDGES)].tolist() == [
+            e in ("fib33", "fib40") for e in TREE_EDGES]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("split", [1, 2])
+def test_cuda_encode_launches_trees_once_per_batch_slice(cuda, split):
+    """An encode round trip on the card, the card listed ``split`` times:
+    wire-equal to the host codec, one K7 launch per batch slice."""
+    from libhuffman_tpu_torch import decode as tdec
+    from libhuffman_tpu_torch import encode as tenc
+    from libhuffman_tpu_torch.config import EncodeConfig
+    from libhuffman_tpu_torch.parallel import block_mesh
+
+    data = corpora().FAMILIES["text"](17 * 65536 - 1000)
+    mesh = block_mesh([cuda] * split)
+    kernels.reset_launches()
+    s = tenc.encode(data, config=EncodeConfig(blocksize=65536,
+                                              batch_blocks=4, mesh=mesh))
+    batches = -(-17 // (4 * split))
+    assert kernels.LAUNCHES["trees"] == batches * split
+    assert kernels.LAUNCHES["histogram"] == batches * split
+    assert s == hostref.encode(data, 65536)
+    assert tdec.decode(s) == data

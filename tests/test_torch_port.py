@@ -70,9 +70,9 @@ def test_cpu_tensors_take_the_twins_and_launch_nothing():
     enc = tenc.encode(data, 4096, device="cpu")
     assert enc == hostref.encode(data, 4096)
     assert tdec.decode(enc, device="cpu") == data
-    assert kernels.LAUNCHES == {"histogram": 0, "symbol_layout": 0,
-                                "pack": 0, "resolve": 0, "chain": 0,
-                                "emit": 0}
+    assert kernels.LAUNCHES == {"histogram": 0, "trees": 0,
+                                "symbol_layout": 0, "pack": 0, "resolve": 0,
+                                "chain": 0, "emit": 0}
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take():
@@ -120,7 +120,7 @@ def test_build_targets_sm90a_into_the_build_dir():
     assert _build.build_dir() == ROOT / "build" / "kernels"
     assert [p.name for p in _build.sources()] == [
         "chain.cu", "emit.cu", "histogram.cu", "layout.cu", "pack.cu",
-        "resolve.cu"]
+        "resolve.cu", "trees.cu"]
     assert "build/" in (ROOT / ".gitignore").read_text().split()
 
 

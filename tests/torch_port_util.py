@@ -8,9 +8,10 @@ shifts, compares or gathers for ``torch.uint32``).  ``chain_edge_meta``,
 ``emit_edge_inputs`` and ``run_words`` with the tables of ``fib_block``
 craft the edge cases of the chain, emit and resolve kernels, and
 ``hist_edge_inputs`` and ``pack_edge_inputs`` those of the histogram and
-pack kernels, for these tests and for ``chip_smoke.py``, which loads this
-file by path.  ``one_torch_thread`` is the autouse fixture the port's test
-modules import.
+pack kernels, and ``tree_edge_freqs`` those of the trees kernel, for these
+tests and for ``chip_smoke.py``, which loads this file by path.
+``one_torch_thread`` is the autouse fixture the port's test modules
+import.
 """
 
 from __future__ import annotations
@@ -102,6 +103,49 @@ def corpora():
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def fib_freqs(n: int) -> np.ndarray:
+    """A (512,) histogram row of the first n Fibonacci numbers: its code
+    lengths run up to n (n - 1 merges deep, and the unary root)."""
+    counts = [1, 1]
+    while len(counts) < n:
+        counts.append(counts[-1] + counts[-2])
+    f = np.zeros(512, np.int32)
+    f[:n] = counts[:n]
+    return f
+
+
+# Crafted histogram rows of the trees kernel, in the order of
+# ``tree_edge_freqs``: all 256 symbols at one rate (256 rounds, ties
+# everywhere), Fibonacci rows with codes of 22, exactly 32 and (cut, the
+# overflow flag set) 33 and 40 bits, five equal rates, one symbol, none.
+TREE_EDGES = ("all256", "fib22", "fib32", "fib33", "fib40", "ties",
+              "single", "zero")
+
+
+def tree_edge_freqs() -> np.ndarray:
+    """(len(TREE_EDGES), 512) int32 histogram rows, slots 256..511 zero."""
+    rows = np.zeros((len(TREE_EDGES), 512), np.int32)
+    rows[0, :256] = 7
+    for i, n in ((1, 22), (2, 32), (3, 33), (4, 40)):
+        rows[i] = fib_freqs(n)
+    rows[5, [3, 9, 200, 201, 255]] = 5
+    rows[6, 65] = 10
+    return rows
+
+
+def corpus_freqs(nbytes: int) -> np.ndarray:
+    """Histogram rows of both corpus families: for each, ``nbytes`` cut
+    into 64 KiB blocks and the next ``nbytes`` into 128 KiB blocks."""
+    fam = corpora().FAMILIES
+    rows = []
+    for c in ("text", "mixed"):
+        data = np.frombuffer(fam[c](2 * nbytes), np.uint8)
+        for part, n in ((data[:nbytes], 1 << 16), (data[nbytes:], 1 << 17)):
+            for blk in part.reshape(-1, n):
+                rows.append(np.bincount(blk, minlength=512))
+    return np.asarray(rows, np.int32)
 
 
 CHAIN_SEG = 2048  # positions per segment of the chain kernel (csrc/chain.cu)
