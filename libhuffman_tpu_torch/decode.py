@@ -19,6 +19,27 @@ chain.  The device route breaks the chain speculatively:
      on the host by the exact sequential decoder, so the result never
      depends on the speculation.  :data:`COUNTS` records both kinds.
 
+:data:`COUNTS`, since the last reset (every key is zeroed alike):
+
+  host_decoded_blocks     blocks the host walked;
+  device_decoded_blocks   blocks taken from a device result;
+  decode_d2h_bytes        bytes copied back from the devices;
+  device_out_bytes        output bytes taken from what was copied back;
+  host_walked_bytes       output bytes the host walk produced;
+  host_oversized_blocks   walked blocks whose speculative cap passed 2^18
+                          bytes of payload;
+  host_deep_blocks        walked blocks whose tree the resolve tables
+                          cannot hold (1-bit codes, over-capacity state
+                          cuts, depth > 25);
+  host_capshort_blocks    walked blocks whose tightened cap fell short of
+                          the payload they needed;
+  host_missed_blocks      walked blocks with no candidate at their offset
+                          (or with the device route off).
+
+The four reasons (oversized, deep, capshort, missed) add up to
+``host_decoded_blocks``.  The span ``huff.decode.host_walk``, inside
+``huff.decode.walk``, covers each block's host walk.
+
 ``use_device=False`` walks every block on the host (the native sequential
 scanner, or ``ops/hostref`` without a toolchain).
 
@@ -53,11 +74,13 @@ _POSITION_BUDGET = 1 << 28
 # block before it one byte short, so the host would walk it.
 _CAP_SLACK = 16
 
-# Since the last reset: blocks decoded by each route (see module
-# docstring), bytes copied back from the devices, and output bytes taken
-# from what was copied back.
+# Blocks and bytes by route, and why the host walked a block (see the
+# module docstring).
 COUNTS = {"host_decoded_blocks": 0, "device_decoded_blocks": 0,
-          "decode_d2h_bytes": 0, "device_out_bytes": 0}
+          "decode_d2h_bytes": 0, "device_out_bytes": 0,
+          "host_walked_bytes": 0, "host_oversized_blocks": 0,
+          "host_deep_blocks": 0, "host_capshort_blocks": 0,
+          "host_missed_blocks": 0}
 
 
 def _bucket(n: int, lo: int) -> int:
@@ -101,10 +124,11 @@ def _pad_table() -> np.ndarray:
 class _Candidate:
     """A possible block header.  When the chain reaches it, ``error`` (an
     exception class) raises, else ``result`` is taken, else the host walks
-    the block."""
+    the block and counts it under ``host_reason``, the :data:`COUNTS` key
+    of why the device route left it out."""
 
     __slots__ = ("off", "n_sym", "tree", "payload_off", "avail", "error",
-                 "result")
+                 "result", "host_reason")
 
     def __init__(self, off, n_sym, tree, payload_off, avail):
         self.off = off
@@ -114,6 +138,7 @@ class _Candidate:
         self.avail = avail  # payload bytes available before stream end
         self.error = None
         self.result = None  # (symbols bytes, consumed payload bytes)
+        self.host_reason = None
 
 
 class _Plan:
@@ -174,10 +199,13 @@ def _device_candidates(cands: list[_Candidate]):
         if ns < 0:
             # 1-bit codes, over-capacity state cuts, or depth > 25
             # (crafted trees): host walk.
+            c.host_reason = "host_deep_blocks"
             continue
         cap = _payload_cap(c, int(maxdep_all[i]), next_off.get(c.off))
         if cap <= (1 << 18):  # oversized single blocks: host walk
             eligible.append((c, tables_all[i], cap, ns))
+        else:
+            c.host_reason = "host_oversized_blocks"
     return eligible
 
 
@@ -357,6 +385,8 @@ def _apply_plan_results(plan, out_h, end_h, cor_h, bad_h):
                 c.error = BtreeCorruptedError
             elif cap >= c.avail:
                 c.error = ReadWriteError
+            else:
+                c.host_reason = "host_capshort_blocks"
             continue
         consumed = (int(end_h[b]) + 7) // 8
         if consumed <= cap:
@@ -364,7 +394,8 @@ def _apply_plan_results(plan, out_h, end_h, cor_h, bad_h):
             c.result = (out_h[b, : c.n_sym].data, consumed)
         elif cap >= c.avail:
             c.error = ReadWriteError
-        # else: the cap fell short of avail; the host walks the block.
+        else:  # the cap fell short of avail; the host walks the block.
+            c.host_reason = "host_capshort_blocks"
 
 
 def _walk_block(buf: np.ndarray, mv: memoryview, off: int, length: int):
@@ -424,9 +455,13 @@ def _chain(data: bytes, length: int, mesh: BlockMesh | None):
                     COUNTS["device_decoded_blocks"] += 1
                     COUNTS["device_out_bytes"] += len(syms)
                     continue
-                syms, off = _walk_block(buf, mv, off, length)
+                with annotate("huff.decode.host_walk"):
+                    syms, off = _walk_block(buf, mv, off, length)
                 out.append(syms)
                 COUNTS["host_decoded_blocks"] += 1
+                COUNTS["host_walked_bytes"] += len(syms)
+                COUNTS[c.host_reason if c is not None
+                       else "host_missed_blocks"] += 1
             except ReadWriteError as e:
                 # Incomplete data at the chain tail: everything decoded so
                 # far is valid and ``off`` marks the incomplete block's

@@ -127,6 +127,8 @@ def test_tightened_cap_short_read_retries_on_host(monkeypatch):
                         lambda c, depth, nxt: max(96, orig(c, depth, nxt) // 3))
     _check(stream, data)
     assert tdec.COUNTS["host_decoded_blocks"] > 0
+    assert tdec.COUNTS["host_capshort_blocks"] == tdec.COUNTS[
+        "host_decoded_blocks"]
 
 
 def test_non_unary_root_tree_takes_the_host_route():
@@ -140,6 +142,7 @@ def test_non_unary_root_tree_takes_the_host_route():
     _check(stream, b"abba")
     assert routes(tdec.COUNTS) == {"host_decoded_blocks": 1,
                                    "device_decoded_blocks": 0}
+    assert tdec.COUNTS["host_deep_blocks"] == 1
 
 
 def test_decode_prefix_stops_at_a_truncated_tail():

@@ -115,7 +115,12 @@ def test_decode_host_walk_copies_nothing_back():
     assert tdec.decode(hostref.encode(data, _BS), use_device=False) == data
     assert tdec.COUNTS == {"host_decoded_blocks": 3,
                            "device_decoded_blocks": 0,
-                           "decode_d2h_bytes": 0, "device_out_bytes": 0}
+                           "decode_d2h_bytes": 0, "device_out_bytes": 0,
+                           "host_walked_bytes": len(data),
+                           "host_oversized_blocks": 0,
+                           "host_deep_blocks": 0,
+                           "host_capshort_blocks": 0,
+                           "host_missed_blocks": 3}
 
 
 def test_no_timings_with_timing_off():
